@@ -1,0 +1,151 @@
+"""Build and load the package's CUDA kernels.
+
+`load()` compiles `csrc/*.cu` with `nvcc` for `sm_90a` into one shared
+library with a plain C interface and opens it with `ctypes`. It runs at
+first use, never at import: the CPU tests import every module on machines
+that have no compiler. There is no fallback — a missing `nvcc` or a failed
+compile raises `RuntimeError` carrying the compiler's output.
+
+The build is keyed by a hash of the sources, the generated constants
+header and the flags, so an unchanged tree reuses `build/` and any edit
+rebuilds. Each source is compiled to an object by its own `nvcc` process,
+all started together, and one link step joins them.
+
+Constants the kernels share with the Python side (`core/sweep/fields.py`
+score bits and `MP_*`/`MS_*` column tables, `KIND_*` policy kinds, the
+histogram width and the never-arrives sentinel) are written into
+`sweep_fields.h` from the Python definitions at build time; the `.cu`
+sources never spell them as literals.
+
+The build directory is `build/repro_torch` under the repository root;
+nothing else outside the package is written.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+#: facts of the build that `load()` performed or reused in this process:
+#: ``path``, ``seconds`` (0.0 when an existing library was reused),
+#: ``reused``, ``log`` (nvcc/ptxas output: registers, spills per kernel)
+info: dict = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _fields_header() -> str:
+    """`sweep_fields.h`: every shared constant as a `#define`, generated
+    from the Python single sources of truth."""
+    from repro_torch.core.sweep import fields, policies
+    from repro_torch.core.sweep.engine import MAX_LAT_TICKS, _PAD_ARRIVE
+    lines = ["// generated by repro_torch/kernels/_build.py - do not edit",
+             "#pragma once"]
+    for name in fields.__all__:
+        lines.append(f"#define {name} {int(getattr(fields, name))}")
+    for name in sorted(n for n in vars(policies) if n.startswith("KIND_")):
+        lines.append(f"#define {name} {int(getattr(policies, name))}")
+    lines.append(f"#define POLICY_NEG ({int(policies._NEG)})")
+    lines.append(f"#define POLICY_KD {int(policies._KD)}")
+    lines.append(f"#define MAX_LAT_TICKS {int(MAX_LAT_TICKS)}")
+    lines.append(f"#define PAD_ARRIVE {int(_PAD_ARRIVE)}")
+    return "\n".join(lines) + "\n"
+
+
+def _find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            cands.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "repro_torch kernels need the CUDA compiler: no nvcc on PATH, "
+        "under $CUDA_HOME/bin or under /usr/local/cuda/bin")
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all, return their joined
+    output; raise with that output if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    bad = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n  " + "\n  ".join(
+            " ".join(c) for c in bad) + "\n" + log)
+    return log
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sweep_arbiter_launch.argtypes = [p] * 12 + [i] * 3 + [p]
+    lib.sweep_arbiter_launch.restype = i
+    lib.sweep_mega_closed_launch.argtypes = [p] * 13 + [i] * 14 + [p]
+    lib.sweep_mega_closed_launch.restype = i
+    lib.sweep_mega_closed_scratch_words.argtypes = [i] * 7
+    lib.sweep_mega_closed_scratch_words.restype = ctypes.c_longlong
+    lib.sweep_error_string.argtypes = [i]
+    lib.sweep_error_string.restype = ctypes.c_char_p
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built from the sources in the package
+    at first use (see the module docstring)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    fields_h = _fields_header()
+    h = hashlib.sha256()
+    for f in sources + headers:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(fields_h.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
+    out = build_dir() / tag
+    so = out / "libsweep_kernels.so"
+    t0 = time.perf_counter()
+    log, reused = "", so.is_file()
+    if not reused:
+        nvcc = _find_nvcc()
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "sweep_fields.h").write_text(fields_h)
+        objs = [out / (s.stem + ".o") for s in sources]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(out), "-I", str(CSRC),
+                         "-c", str(s), "-o", str(o)]
+                        for s, o in zip(sources, objs)])
+        tmp = out / f"libsweep_kernels.{os.getpid()}.so"
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _bind(lib)
+    info.update(path=str(so), reused=reused, log=log,
+                seconds=0.0 if reused else time.perf_counter() - t0)
+    _lib = lib
+    return lib
+
+
+def error_string(err: int) -> str:
+    """`cudaGetErrorString` for a code returned by a launch function."""
+    return load().sweep_error_string(int(err)).decode()
