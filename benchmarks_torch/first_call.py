@@ -1,7 +1,8 @@
 """Short device call for a new or changed kernel: build the CUDA sources,
-print what ptxas says (registers, spills), hold both kernels against
-their plain versions on small grids, and stop. Run on a machine with an
-NVIDIA GPU and nvcc: `python3 benchmarks_torch/first_call.py`."""
+print what ptxas says (registers, spills), hold every kernel against its
+plain version on small grids (both megakernels in both their narrow and
+their 128-bank form), and stop. Run on a machine with an NVIDIA GPU and
+nvcc: `python3 benchmarks_torch/first_call.py`."""
 import os
 import sys
 
@@ -23,4 +24,8 @@ _build.load()
 print("build seconds", _build.info["seconds"])
 print(_build.info["log"])
 print("arbiter max abs err", cs.check_arbiter(torch, np))
-print(cs.check_megakernel(sweep, SweepSpec, tuple(list_policies())))
+policies = tuple(list_policies())
+print(cs.check_megakernel(sweep, cs.conformance_specs(SweepSpec, policies)))
+print(cs.check_megakernel(sweep,
+                          cs.open_conformance_specs(SweepSpec, policies)))
+print(cs.check_wide(torch, sweep, SweepSpec))

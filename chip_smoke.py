@@ -13,10 +13,13 @@ and prints one JSON object a line:
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card, exact (all-integer: the tolerance is 0):
               the arbiter kernel on random planes with ties and ineligible
-              rows at G=100128, B=8, closed (`occ`) and open form; the
-              tick-loop megakernel against `backend="torch"` on the card
-              and `backend="batched"` on the host over the conformance,
-              multirank and subarray grids;
+              rows at G=100128, B=8, closed (`occ`) and open form; each
+              tick-loop megakernel (closed A1, open A2) against
+              `backend="torch"` on the card and `backend="batched"` on
+              the host over the conformance, multirank and subarray grids
+              of its mode; both megakernels on 128-bank cells (16 banks x
+              4 ranks x 2 channels, their wide instantiation) against
+              their plain versions on the same device inputs;
   4. paper    the main path at the paper's grid: figure-3 policies x the
               closed figure scenarios x 3 densities, reqs=2000, seeds 1
               and 2, through `sweep(spec)` (default backend: the
@@ -36,17 +39,31 @@ and prints one JSON object a line:
               "torch", arbiter="cuda")`, the host-driven torch tick body
               whose scoring step is the arbiter kernel at [100128, 8], all
               100128 cells held equal to the megakernel's (path
-              `ladder_torch_arbiter`).
+              `ladder_torch_arbiter`);
+  6. open     the open-loop main path (`SweepSpec(mode="open")`, the
+              spec's default): the reference's open grid, 8 policies x 8
+              scenarios x 3 densities = 192 cells, reqs=400, seed 0,
+              through `sweep(spec)` (kernel A2), equal to
+              `backend="batched"` on the host (path `open_grid_mega`);
+              the same grid through `sweep(spec, "batched",
+              arbiter="cuda")` and `sweep(spec, "torch", arbiter="cuda")`,
+              the arbiter kernel in its open form, both equal to A2's
+              cells (paths `open_grid_batched_arbiter`,
+              `open_grid_torch_arbiter`); then the open ladder rung, every
+              registered policy x 2384 seed-varied open traces x 3
+              densities = 100128 cells (reqs=400), through `sweep(spec)`,
+              its last 24 traces' 1008 cells held equal to `batched`
+              (path `open_ladder_mega`).
 
-The megakernel scores inside its own tick loop and never calls the
+The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
-Both kernels' launch counters are set to 0 just before each of the four
-paths and read just after it, and reported per path; a path that did not
-launch its kernel fails the run. Afterwards each kernel is timed at the
-shape its full-width path gives it (CUDA events) beside its plain version
-and its bound, and held against the plain version once more at that
-shape; the arbiter kernel is also timed at the paper path's [120, 8].
-Those launches are not counted. The line before the last is
+The three kernels' launch counters are set to 0 just before each of the
+eight paths and read just after it, and reported per path; a path that
+did not launch its kernel fails the run. Afterwards each kernel is timed
+at the shape its full-width path gives it (CUDA events) beside its plain
+version and its bound, and held against the plain version once more at
+that shape; the arbiter kernel is also timed at the paper path's
+[120, 8]. Those launches are not counted. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Any
 failing phase raises: the exit code is then non-zero and no result line
 is printed.
@@ -79,6 +96,17 @@ MEGA_BASE_SCENARIOS = ("closed_mixed", "closed_read_heavy",
                        "closed_write_heavy", "closed_streaming")
 LADDER_SCENARIOS = 2384          # the 1e5 rung: 14 x 2384 x 3 = 100128
 ARBITER_G, ARBITER_B = 100128, 8
+# the reference's open grid (benchmarks/fig_refresh.py `sweep_grid`)
+GRID_POLICIES = ("ideal", "ref_ab", "ref_pb", "darp", "darp_ooo",
+                 "sarp_pb", "dsarp", "elastic")
+GRID_SCENARIOS = ("read_heavy", "write_burst_draining",
+                  "row_buffer_friendly", "bank_camping",
+                  "subarray_conflict_adversarial", "trace_replay", "mixed",
+                  "streaming")
+OPEN_REQS = 400
+# one registered policy of each vectorized kind, for the 128-bank checks
+ONE_PER_KIND = ("ideal", "ref_ab", "staggered_ab", "ref_pb", "darp",
+                "rank_aware_darp", "elastic", "hira")
 
 
 def emit(obj):
@@ -212,24 +240,95 @@ def conformance_specs(SweepSpec, policies):
             ("subarray_s1", subs[0]), ("subarray_s4", subs[1])]
 
 
-def check_megakernel(sweep, SweepSpec, policies):
+def open_conformance_specs(SweepSpec, policies):
+    """The grids of `conformance_specs` in open form: open scenarios, the
+    spec's default mode."""
+    conf = SweepSpec(
+        policies=policies,
+        scenarios=("mixed", "read_heavy", "write_burst_draining",
+                   "bank_camping"),
+        densities=DENSITIES, reqs=96, seed=2)
+    multi = SweepSpec(policies=policies,
+                      scenarios=("mixed", "write_burst_draining"),
+                      densities=(32,), reqs=400, seed=7, n_ranks=2,
+                      n_channels=2)
+    subs = [SweepSpec(policies=("sarp_pb", "dsarp", "hira", "sarp_ab",
+                                "ideal"),
+                      scenarios=("subarray_conflict_adversarial",
+                                 "row_buffer_friendly"),
+                      densities=(8, 32), reqs=400, seed=3, n_subarrays=s)
+            for s in (1, 4)]
+    return [("open_conformance", conf), ("open_multirank", multi),
+            ("open_subarray_s1", subs[0]), ("open_subarray_s4", subs[1])]
+
+
+def check_megakernel(sweep, specs):
     """Kernel vs the torch tick body on the card (plain arbiter, then
     the arbiter kernel inside the torch body) and vs numpy `batched` on
     the host; exact on every `CellResult` field."""
     out = []
-    for name, spec in conformance_specs(SweepSpec, policies):
+    for name, spec in specs:
         t0 = time.perf_counter()
         mega = sweep(spec, "mega")
         plain = sweep(spec, "torch")
         require_equal(plain, mega, f"{name}: megakernel vs backend='torch'")
         require_equal(sweep(spec, "batched"), mega,
                       f"{name}: megakernel vs backend='batched'")
-        if name == "conformance":
+        if name.endswith("conformance"):
             require_equal(sweep(spec, "torch", arbiter="cuda"), plain,
                           f"{name}: torch body with the arbiter kernel")
         if not all(c.finished for c in mega.cells):
             raise AssertionError(f"{name}: unfinished cells")
-        out.append(dict(grid=name, cells=len(mega.cells), differing=0,
+        out.append(dict(grid=name, mode=spec.mode, cells=len(mega.cells),
+                        differing=0,
+                        seconds=round(time.perf_counter() - t0, 3)))
+    return out
+
+
+def check_wide(torch, sweep, SweepSpec):
+    """Both megakernels on 128-bank cells - DDR4's 16 banks a rank, 4
+    ranks, 2 channels; bank sets of two words, the wide instantiation -
+    against their plain versions on the same device inputs, and through
+    `sweep()` against `batched` on the host. The demand is long enough
+    for all-bank refreshes to fire."""
+    from repro_torch.core.sweep.engine import _Grid
+    from repro_torch.kernels import sweep_megakernel as mega
+    out = []
+    for mode, scn, reqs in (("closed", "closed_mixed", 2000),
+                            ("open", "mixed", 1200)):
+        t0 = time.perf_counter()
+        spec = SweepSpec(policies=ONE_PER_KIND, scenarios=(scn,),
+                         densities=(32,), reqs=reqs, seed=4, mode=mode,
+                         n_banks=16, n_ranks=4, n_channels=2)
+        grid = _Grid(spec, stack_streams=False)
+        cfg, _, params, scn_t, streams, counts = mega.device_inputs(
+            grid, "cuda")
+        if mode == "closed":
+            got = mega.mega_closed_cells(cfg, params, scn_t, streams,
+                                         counts)[:2]
+            want = mega._plain_closed_cells(cfg, params, scn_t, streams,
+                                            counts)[:2]
+        else:
+            got = mega.mega_open_cells(cfg, params, scn_t, streams,
+                                       counts)[:1]
+            want = mega._plain_open_cells(cfg, params, scn_t, streams,
+                                          counts)[:1]
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"128-bank {mode} megakernel differs from "
+                                 f"its plain version: max abs {err}")
+        res = sweep(spec, "mega")
+        require_equal(sweep(spec, "batched"), res,
+                      f"128-bank {mode}: megakernel vs backend='batched'")
+        refab = sum(c.refreshes_ab for c in res.cells)
+        if cfg.B != 128 or refab == 0 or not all(c.finished
+                                                 for c in res.cells):
+            raise AssertionError(f"128-bank {mode} grid: B={cfg.B}, "
+                                 f"{refab} all-bank refreshes")
+        out.append(dict(mode=mode, banks=cfg.B, cells=len(res.cells),
+                        reqs=reqs, max_abs_err=err, refreshes_ab=refab,
                         seconds=round(time.perf_counter() - t0, 3)))
     return out
 
@@ -390,6 +489,144 @@ def time_megakernel(torch, spec):
                 io_bytes=nbytes)
 
 
+# ------------------------------------------------------------- phase 6
+def open_grid_phase(sweep, SweepSpec, np):
+    """The reference's open grid through the default entry point (kernel
+    A2 on the card), equal to `batched` on the host; the open-loop
+    metric, latency speedup against the no-refresh ideal, must be finite
+    and at most 1 for every policy."""
+    spec = SweepSpec(policies=GRID_POLICIES, scenarios=GRID_SCENARIOS,
+                     densities=DENSITIES, reqs=OPEN_REQS, seed=0)
+    if spec.mode != "open":
+        raise AssertionError("SweepSpec's default mode is not 'open'")
+    t0 = time.perf_counter()
+    res = sweep(spec)                           # default backend, on the card
+    secs = time.perf_counter() - t0
+    if res.backend != "mega" or len(res.cells) != 192:
+        raise AssertionError("open grid: wrong backend or cell count")
+    if not all(c.finished and c.mode == "open" for c in res.cells):
+        raise AssertionError("open grid: unfinished cells")
+    t0 = time.perf_counter()
+    host = sweep(spec, "batched")
+    host_secs = time.perf_counter() - t0
+    require_equal(host, res, "open grid: megakernel vs backend='batched'")
+    speed = {}
+    for p in GRID_POLICIES:
+        for d in DENSITIES:
+            v = [res.get(p, sc, d).latency_speedup_vs(res.get("ideal", sc, d))
+                 for sc in GRID_SCENARIOS]
+            speed[f"{p}@{d}"] = float(np.mean(v))
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 + 1e-12
+               for v in speed.values()) or any(
+            speed[f"ideal@{d}"] != 1.0 for d in DENSITIES):
+        raise AssertionError(f"open grid: latency speedups {speed}")
+    max_ticks = max(int(round(c.makespan / spec.dt_ns)) for c in res.cells)
+    return spec, res, dict(
+        phase="open_grid", cells=len(res.cells), reqs=OPEN_REQS, seed=0,
+        sweep_seconds=round(secs, 4), stage_seconds=res.seconds,
+        batched_seconds=round(host_secs, 3), max_ticks_per_cell=max_ticks,
+        latency_speedup_vs_ideal=speed)
+
+
+def open_arbiter_phase(sweep, spec, mega_res, backend):
+    """The open grid on a host-driven backend whose scoring step is the
+    arbiter kernel (open form), equal to the megakernel's cells."""
+    t0 = time.perf_counter()
+    res = sweep(spec, backend, arbiter="cuda")
+    secs = time.perf_counter() - t0
+    require_equal(res, mega_res, f"open grid: {backend} + arbiter kernel "
+                                 f"vs mega")
+    return dict(phase=f"open_grid_{backend}_arbiter", cells=len(res.cells),
+                arbiter_shape=[len(res.cells), ARBITER_B],
+                sweep_seconds=round(secs, 3))
+
+
+def open_ladder_spec(SweepSpec, make_trace, policies, n_scen, first=0):
+    """The open counterpart of `ladder_spec`: the 8 grid scenarios
+    cycled, each trace seed-varied and renamed."""
+    scen = []
+    for i in range(first, n_scen):
+        name = GRID_SCENARIOS[i % len(GRID_SCENARIOS)]
+        tr = make_trace(name, 8, 8, reqs=OPEN_REQS, seed=1000 + i)
+        scen.append(dataclasses.replace(tr, name=f"{name}#s{i}"))
+    return SweepSpec(policies=policies, scenarios=tuple(scen),
+                     densities=DENSITIES, reqs=OPEN_REQS, seed=0)
+
+
+def open_ladder_phase(sweep, SweepSpec, make_trace, policies):
+    t0 = time.perf_counter()
+    spec = open_ladder_spec(SweepSpec, make_trace, policies,
+                            LADDER_SCENARIOS)
+    t_spec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sweep(spec)
+    total = time.perf_counter() - t0
+    n = len(res.cells)
+    if n != len(policies) * LADDER_SCENARIOS * len(DENSITIES):
+        raise AssertionError(f"open ladder rung has {n} cells")
+    if not all(c.finished for c in res.cells):
+        raise AssertionError("open ladder rung: unfinished cells")
+    tail = open_ladder_spec(SweepSpec, make_trace, policies,
+                            LADDER_SCENARIOS, first=LADDER_SCENARIOS - 24)
+    ref = sweep(tail, "batched")
+    bad = [c for c in ref.cells
+           if res.get(c.policy, c.scenario, c.density_gb) != c]
+    if bad:
+        raise AssertionError(f"open ladder rung: {len(bad)} of "
+                             f"{len(ref.cells)} tail cells differ from "
+                             f"batched: {bad[0]}")
+    return spec, dict(
+        phase="open_ladder", rung="1e5", cells=n,
+        scenarios=LADDER_SCENARIOS, reqs=OPEN_REQS,
+        trace_seconds=round(t_spec, 3),
+        grid_seconds=round(res.seconds["grid"], 3),
+        device_run_seconds=round(res.seconds["run"], 3),
+        finalize_seconds=round(res.seconds["finalize"], 3),
+        sweep_seconds=round(total, 3), cells_per_second=n / total,
+        tail_cells_checked=len(ref.cells))
+
+
+def time_open_megakernel(torch, spec):
+    """Kernel A2 and its plain version at the open ladder's shape, on
+    the same device inputs; the two results must be equal."""
+    from repro_torch.core.sweep.engine import _Grid
+    from repro_torch.kernels import sweep_megakernel as mega
+    grid = _Grid(spec, stack_streams=False)
+    cfg, _, params, scn, streams, npb = mega.device_inputs(grid, "cuda")
+    out = {}
+
+    def run(_):
+        out["k"] = mega.mega_open_cells(cfg, params, scn, streams, npb)
+    ms = time_cuda(torch, run, 3)
+    stats, ticks = out["k"]
+    t0 = time.perf_counter()
+    p_stats, _ = mega._plain_open_cells(cfg, params, scn, streams, npb)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = int((stats.long() - p_stats.long()).abs().max())
+    if not torch.equal(stats, p_stats):
+        raise AssertionError(f"open megakernel differs from its plain "
+                             f"version at the full shape: max abs {err}")
+    n = params.shape[0]
+    tk = ticks.long()
+    cell_ticks, max_ticks = int(tk.sum()), int(tk.max())
+    # bytes: every input read once, every output written once
+    nbytes = 4 * (params.numel() + scn.numel() + npb.numel()
+                  + sum(v.numel() for v in streams.values())
+                  + stats.numel() + ticks.numel())
+    # operations: counted from the kernel's source (`open_operations`)
+    ops = mega.open_operations(cfg, params, stats, ticks)
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=1e3 * max(bound_bytes, bound_ops),
+                bound_by="bytes" if bound_bytes >= bound_ops
+                else "operations", cells=n, L=cfg.L, cell_ticks=cell_ticks,
+                max_ticks_per_cell=max_ticks,
+                cell_ticks_per_second=cell_ticks / (ms / 1e3),
+                operations=ops, ops_per_cell_tick=ops / cell_ticks,
+                io_bytes=nbytes)
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -404,7 +641,8 @@ def main() -> int:
         return 3
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.core.policy import list_policies
-    from repro_torch.core.refresh.scenarios import make_closed_demand
+    from repro_torch.core.refresh.scenarios import (make_closed_demand,
+                                                    make_trace)
     from repro_torch.core.sweep import SweepSpec, sweep
     from repro_torch.kernels import _build
     from repro_torch.kernels import sweep_arbiter as arb
@@ -423,7 +661,7 @@ def main() -> int:
     # 2. build (from the sources in this checkout, into build/)
     _build.load()
     regs = [ln.strip() for ln in _build.info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(_build.info["seconds"], 3),
           "reused": _build.info["reused"], "library": os.path.relpath(
               _build.info["path"], HERE), "ptxas": regs})
@@ -431,19 +669,25 @@ def main() -> int:
     # 3. kernels against their plain versions
     policies = tuple(list_policies())
     arb_err = check_arbiter(torch, np)
-    grids = check_megakernel(sweep, SweepSpec, policies)
+    grids = check_megakernel(sweep, conformance_specs(SweepSpec, policies))
+    open_grids = check_megakernel(sweep,
+                                  open_conformance_specs(SweepSpec, policies))
+    wide = check_wide(torch, sweep, SweepSpec)
     emit({"phase": "kernels", "arbiter": {
         "G": ARBITER_G, "B": ARBITER_B, "forms": ["closed", "open"],
         "max_abs_err": arb_err}, "megakernel": grids,
+        "open_megakernel": open_grids, "wide_128_banks": wide,
         "tolerance": 0})
 
-    # 4 + 5. the main paths, each with both launch counters from zero
+    # 4 - 6. the main paths, each with every launch counter from zero
     paths = {}
 
     def drive(label, expects, fn, *args):
-        arb.LAUNCHES = mega.LAUNCHES = 0
+        arb.LAUNCHES = mega.LAUNCHES = mega.OPEN_LAUNCHES = 0
         out = fn(*args)
-        paths[label] = {"mega": mega.LAUNCHES, "arbiter": arb.LAUNCHES}
+        paths[label] = {"mega": mega.LAUNCHES,
+                        "mega_open": mega.OPEN_LAUNCHES,
+                        "arbiter": arb.LAUNCHES}
         if paths[label][expects] <= 0:
             raise AssertionError(f"path {label} never launched the "
                                  f"{expects} kernel")
@@ -463,16 +707,30 @@ def main() -> int:
                     sweep, full_spec, full_res),
               launches=paths["ladder_torch_arbiter"]))
     del full_res, paper_res
+    open_spec, open_res, og = drive("open_grid_mega", "mega_open",
+                                    open_grid_phase, sweep, SweepSpec, np)
+    emit(dict(og, launches=paths["open_grid_mega"]))
+    for backend in ("batched", "torch"):
+        label = f"open_grid_{backend}_arbiter"
+        emit(dict(drive(label, "arbiter", open_arbiter_phase, sweep,
+                        open_spec, open_res, backend),
+                  launches=paths[label]))
+    del open_res
+    ladder_spec_open, ol = drive("open_ladder_mega", "mega_open",
+                                 open_ladder_phase, sweep, SweepSpec,
+                                 make_trace, policies)
+    emit(dict(ol, launches=paths["open_ladder_mega"]))
     by_path = {k: {p: n[k] for p, n in paths.items()}
-               for k in ("mega", "arbiter")}
+               for k in ("mega", "mega_open", "arbiter")}
 
     # timings at the main-path shapes (not counted as launches)
     ta = time_arbiter(torch, np, ARBITER_G)
     ta_paper = time_arbiter(torch, np, len(FIG3_POLICIES)
                             * len(CLOSED_FIG_SCENARIOS) * len(DENSITIES))
     tm = time_megakernel(torch, full_spec)
+    to = time_open_megakernel(torch, ladder_spec_open)
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
-          "megakernel": tm,
+          "megakernel": tm, "open_megakernel": to,
           "seconds_total": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": [
         {"name": "sweep_mega_closed_kernel", "route": "cuda",
@@ -484,6 +742,16 @@ def main() -> int:
          "max_abs_err": tm["max_abs_err"],
          "ms": tm["ms"], "plain_ms": tm["plain_ms"],
          "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+         "library_ms": None},
+        {"name": "sweep_mega_open_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sweep_megakernel_open.cu",
+         "replaces": "src/repro/kernels/sweep_megakernel.py:269",
+         "launches": sum(by_path["mega_open"].values()),
+         "launches_by_path": by_path["mega_open"],
+         "timed_at": f"{to['cells']} cells (path open_ladder_mega)",
+         "max_abs_err": to["max_abs_err"],
+         "ms": to["ms"], "plain_ms": to["plain_ms"],
+         "bound_ms": to["bound_ms"], "bound_by": to["bound_by"],
          "library_ms": None},
         {"name": "sweep_arbiter_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sweep_arbiter.cu",

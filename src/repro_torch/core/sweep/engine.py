@@ -10,17 +10,16 @@ write buffer, refresh ledger) into stacked ``[G, n_banks]`` arrays, where
 ``G`` is the number of grid cells, and advancing every cell one tick at a
 time with vectorized numpy (policy decisions included — see
 `sweep.policies`); the availability/arbitration inner step also has a
-CUDA kernel (`repro_torch.kernels.sweep_arbiter`), and the whole closed
-tick loop has one (`repro_torch.kernels.sweep_megakernel`).
+CUDA kernel (`repro_torch.kernels.sweep_arbiter`), and the whole tick
+loop of each mode has one (`repro_torch.kernels.sweep_megakernel`).
 
 This module is the PyTorch/CUDA port's copy of the JAX package's
 `repro/core/sweep/engine.py`: the host side (`SweepSpec`, `_Grid`,
-`_finalize`, the numpy `batched` and `scalar` closed-loop backends) is
+`_finalize`, the numpy `batched` and `scalar` backends of both modes) is
 carried over unchanged and pinned equal to the original by the parity
 tests; the traced backends are replaced by `backend="torch"` (a host loop
-over `sweep.torchbody`) and `backend="mega"` (the CUDA tick-loop kernel).
-Only closed-loop mode is ported so far: `sweep()` raises
-`NotImplementedError` for `mode="open"`.
+over `sweep.torchbody`) and `backend="mega"` (the CUDA tick-loop kernels,
+one per mode). Both modes run on every backend.
 
 State is stacked over GLOBAL banks: every cell carries a full
 [channel, rank, bank] hierarchy (`SweepSpec.n_channels` x `n_ranks` x
@@ -112,14 +111,14 @@ identically):
 
 Backends:
 
-  * ``backend="mega"`` — the CUDA tick-loop megakernel, the default: one
-    launch runs every cell to completion on the card.
+  * ``backend="mega"`` — the CUDA tick-loop megakernels (one per mode),
+    the default: one launch runs every cell to completion on the card.
   * ``backend="torch"`` — a host-driven loop over the torch tick body
     (`sweep.torchbody`), on the CPU or the card; `arbiter="cuda"` routes
     the scoring step through the CUDA arbiter kernel.
   * ``backend="batched"`` — stacked numpy, vectorized policies, host
-    only. `arbiter="cuda"` routes step 5's scoring through the CUDA
-    arbiter kernel.
+    only. `arbiter="cuda"` routes step D's (closed: 5's) scoring through
+    the CUDA arbiter kernel.
   * ``backend="scalar"`` — the reference oracle: a plain-Python
     per-cell tick loop that drives the *real* registered policy objects
     through `MaintenanceView`/`select()`. Slow by construction; exists so
@@ -127,9 +126,9 @@ Backends:
     path for every registered policy.
 
     res = sweep(SweepSpec(policies=("ref_ab", "darp", "dsarp"),
-                          scenarios=("closed_mixed", "closed_low_mlp"),
-                          densities=(8, 32), mode="closed"))
-    res.get("dsarp", "closed_mixed", 32).avg_read_latency
+                          scenarios=("read_heavy", "bank_camping"),
+                          densities=(8, 32)))
+    res.get("dsarp", "bank_camping", 32).avg_read_latency
     res.stat("energy")            # [n_policies, n_scenarios, n_densities]
 """
 from __future__ import annotations
@@ -667,6 +666,337 @@ def _finalize(grid: _Grid, g: int, *, reads, writes, hits, misses, refpb,
         mode=mode, core_finish=cf)
 
 
+# --------------------------------------------------------- batched backend
+def _run_batched(grid: _Grid, arbiter: str = "numpy",
+                 device=None) -> list[CellResult]:
+    spec = grid.spec
+    G, B, L, S = grid.G, grid.B, grid.L, grid.S
+    NB, R, NC = grid.NB, grid.R, grid.NC
+    RBC = grid.NR * NB               # banks per channel
+    HI, LO = spec.wbuf_hi, spec.wbuf_lo
+
+    score_fn = None
+    if arbiter == "cuda":
+        from repro_torch.kernels.sweep_arbiter import make_arbiter
+        score_fn = make_arbiter(G, B, device)
+    elif arbiter != "numpy":
+        raise ValueError(f"unknown arbiter {arbiter!r}")
+
+    # flat [G*B, L] views for single-op queue gathers
+    qa = grid.q_arrive.reshape(G * B, L)
+    qr = grid.q_row.reshape(G * B, L)
+    qs = grid.q_sub.reshape(G * B, L)
+    qw = grid.q_write.reshape(G * B, L)
+    n_pb_flat = grid.n_per_bank.reshape(G * B)
+
+    # machine state, stacked [G, B]; refresh occupancy and open rows are
+    # subarray-granular, [G, B * S] with column gs = bank * S + sub
+    bank_free = np.zeros((G, B), np.int32)
+    ref_until_s = np.zeros((G, B * S), np.int32)
+    open_row_s = np.full((G, B * S), -1, np.int32)
+    open_sub = np.full((G, B), -1, np.int32)
+    ctr = np.zeros((G, B), np.int32)
+    issued = np.zeros((G, B), np.int32)
+    n_arrived = np.zeros((G, B), np.int32)
+    n_served = np.zeros((G, B), np.int32)
+    rr = np.zeros(G, np.int32)
+    ab_rr = np.zeros(G, np.int32)          # staggered_ab rank pointer
+    wpend = np.zeros(G, np.int32)
+    drain = np.zeros(G, bool)
+    last_op = np.zeros((G, NC), bool)      # per-channel bus turnaround
+    last_rank = np.full((G, NC), -1, np.int32)
+    ab_pending = np.zeros((G, R), np.int32)
+    rank_drain = np.zeros((G, R), bool)
+    active = grid.n_tot > 0
+    n_left = grid.n_tot.astype(np.int64).copy()
+    kind_active = np.where(active, grid.kind, KIND_IDEAL)
+    has_ab = bool(grid.level_ab.any())
+
+    # incrementally-maintained next-arrival and head-of-queue mirrors
+    next_arrive = grid.q_arrive[:, :, 0].copy()
+    next_w = grid.q_write[:, :, 0].copy()
+    h_arr = grid.q_arrive[:, :, 0].copy()
+    h_row = grid.q_row[:, :, 0].copy()
+    h_sub = grid.q_sub[:, :, 0].copy()
+    h_w = grid.q_write[:, :, 0].copy()
+
+    # stats
+    reads = np.zeros(G, np.int64)
+    writes = np.zeros(G, np.int64)
+    hits = np.zeros(G, np.int64)
+    misses = np.zeros(G, np.int64)
+    refpb = np.zeros(G, np.int64)
+    refab = np.zeros(G, np.int64)
+    lat_sum = np.zeros(G, np.int64)
+    hist = np.zeros((G, MAX_LAT_TICKS + 1), np.int32)
+    maxlag = np.zeros(G, np.int32)
+    last_done = np.zeros(G, np.int32)
+
+    phase, REFI_col = grid.phase, grid.REFI[:, None]
+    RFC_PB_col = grid.RFC_PB[:, None]
+    sarp_c = grid.sarp[:, None]
+    hra_c = grid.hra[:, None]
+    sub_of_col = np.tile(np.arange(S, dtype=np.int32), B)[None, :]
+    kind_g = grid.kind
+    budget_g, wrp_g, urgent_g = grid.budget, grid.wrp, grid.urgent_at
+    level_ab = grid.level_ab
+    rank_phase_g = grid.rank_phase          # [G, R] accrual stagger
+    #: ticks where SOME ab cell's rank accrues debt: (REFI, phase) pairs
+    accrual_keys = sorted({(int(grid.REFI[g]), int(p))
+                           for g in np.nonzero(level_ab)[0]
+                           for p in grid.rank_phase[g]})
+    has_drain_block = has_ab or bool(grid.customs)
+    nav = next_arrive.ravel()
+    nwv = next_w.ravel()
+    arG = np.arange(G, dtype=np.int64)   # fancy-index helper, not a plane
+    t = 0
+    alive = int(active.sum())
+    while alive and t < grid.horizon:
+        # ---- A: arrivals (one queue slot per iteration handles bursts)
+        while True:
+            can = next_arrive <= t
+            if not can.any():
+                break
+            wpend += (can & next_w).sum(axis=1)
+            n_arrived += can
+            gf = np.nonzero(can.ravel())[0]
+            slot = n_arrived.ravel()[gf]
+            sl = np.minimum(slot, L - 1)
+            nav[gf] = np.where(slot >= n_pb_flat[gf], _PAD_ARRIVE,
+                               qa[gf, sl])
+            nwv[gf] = qw[gf, sl]
+        drain |= wpend >= HI
+
+        # ---- B: per-rank refresh debt for all-bank policies (rank r
+        # accrues r * tREFI/R after rank 0 — cross-rank staggering)
+        if has_ab and any(t > p and (t - p) % rv == 0
+                          for rv, p in accrual_keys):
+            acc = ((active & level_ab)[:, None]
+                   & (t > rank_phase_g)
+                   & ((t - rank_phase_g) % REFI_col == 0))
+            ab_pending += acc
+            rank_drain |= acc
+
+        # ---- C: policy decisions against the stacked view
+        # due = 0 while t < phase; phase < tREFI, so the floor-div form is
+        # exact without the explicit branch
+        due = np.maximum((t - phase) // REFI_col + 1, 0)
+        lag = due - issued
+        demand = n_arrived - n_served
+        ready = (ref_until_s.reshape(G, B, S) <= t).all(axis=2)
+        idle = bank_free <= t
+        need = could_pick(kind=kind_active, lag=lag, demand=demand,
+                          write_window=drain, budget=budget_g, wrp=wrp_g)
+        picks = None
+        if need.any():
+            picks, rr = select_batch(
+                np, kind=np.where(need, kind_active, KIND_IDEAL), lag=lag,
+                ready=ready, idle=idle, demand=demand, write_window=drain,
+                budget=budget_g, wrp=wrp_g, urgent_at=urgent_g, rr=rr,
+                gate=True, nb=NB)
+            if not picks.any():
+                picks = None
+
+        start_ab_r = None
+        if has_ab:
+            quiet_r = (idle.reshape(G, R, NB).all(axis=2)
+                       & ready.reshape(G, R, NB).all(axis=2))
+            pend = (active & (kind_g == KIND_AB))[:, None] & (ab_pending > 0)
+            if pend.any():
+                start_ab_r = pend & quiet_r
+            if grid.has_stag:       # staggered_ab: rank round-robin
+                is_st = active & (kind_g == KIND_STAG)
+                idx = ab_rr % R
+                chan_ready = ready.reshape(G, NC, RBC).all(axis=2)
+                elig = (is_st & (ab_pending[arG, idx] > 0)
+                        & quiet_r[arG, idx]
+                        & chan_ready[arG, idx // grid.NR])
+                if elig.any():
+                    if start_ab_r is None:
+                        start_ab_r = np.zeros((G, R), bool)
+                    start_ab_r[arG[elig], idx[elig]] = True
+                ab_rr = ab_rr + elig
+
+        for g, pol in grid.customs:          # non-vectorizable registrations
+            if not active[g]:
+                continue
+            if pol.level == "ab":
+                if ab_pending[g].sum() <= 0:
+                    continue
+                quiet_g = bool(idle[g].all() and ready[g].all())
+                view = MaintenanceView(
+                    now=float(t), n_banks=B, budget=int(grid.budget[g]),
+                    lag=[0] * B, demand=[0] * B,
+                    ready=ready[g].tolist(), idle=idle[g].tolist(),
+                    write_window=bool(drain[g]),
+                    max_issues=1, rank_due=int(ab_pending[g].sum()),
+                    rank_quiet=quiet_g,
+                    n_ranks=grid.NR, n_channels=NC,
+                    rank_of=grid.rank_of_t, channel_of=grid.chan_of_t,
+                    ranks_due=tuple(int(x) for x in ab_pending[g]),
+                    n_subarrays=S,
+                    next_ref_sub=tuple(int(x) % S for x in ctr[g]),
+                    refreshing_sub=_refreshing_subs(
+                        ref_until_s[g].reshape(B, S), t),
+                    active_sub=tuple(int(x) for x in open_sub[g]))
+                for dec in pol.select(view):
+                    if dec.bank == ALL_BANKS:
+                        if start_ab_r is None:
+                            start_ab_r = np.zeros((G, R), bool)
+                        if dec.rank >= 0:
+                            # debt-free ranks skipped (no negative debt)
+                            if ab_pending[g, dec.rank] > 0:
+                                start_ab_r[g, dec.rank] = True
+                        else:
+                            start_ab_r[g] |= ab_pending[g] > 0
+            else:
+                view = MaintenanceView(
+                    now=float(t), n_banks=B, budget=int(grid.budget[g]),
+                    lag=lag[g].tolist(), demand=demand[g].tolist(),
+                    ready=ready[g].tolist(), idle=idle[g].tolist(),
+                    write_window=bool(drain[g]), max_issues=1,
+                    n_ranks=grid.NR, n_channels=NC,
+                    rank_of=grid.rank_of_t, channel_of=grid.chan_of_t,
+                    n_subarrays=S,
+                    next_ref_sub=tuple(int(x) % S for x in ctr[g]),
+                    refreshing_sub=_refreshing_subs(
+                        ref_until_s[g].reshape(B, S), t),
+                    active_sub=tuple(int(x) for x in open_sub[g]))
+                for dec in pol.select(view):
+                    if dec.bank == ALL_BANKS:
+                        raise ValueError(
+                            f"policy {pol.name!r} returned ALL_BANKS from "
+                            f"a per-bank (level='pb') decision point")
+                    if picks is None:
+                        picks = np.zeros((G, B), bool)
+                    picks[g, dec.bank] = True
+
+        if start_ab_r is not None and start_ab_r.any():
+            m = np.repeat(start_ab_r, NB, axis=1)
+            new_sub = (ctr % S).astype(np.int32)
+            # SARP marks (and closes) only the target subarray ctr % S;
+            # a non-SARP refresh occupies every subarray of the bank
+            mark = (np.repeat(m, S, axis=1)
+                    & np.where(sarp_c, np.repeat(new_sub, S, axis=1)
+                               == sub_of_col, True))
+            ref_until_s = np.where(mark, (t + grid.RFC_AB)[:, None],
+                                   ref_until_s)
+            open_row_s = np.where(mark, -1, open_row_s)
+            ctr = ctr + (m & sarp_c)
+            ab_pending -= start_ab_r
+            rank_drain = np.where(start_ab_r, ab_pending > 0, rank_drain)
+            refab += start_ab_r.sum(axis=1)
+
+        if picks is not None:
+            new_sub = (ctr % S).astype(np.int32)
+            # HiRA hidden row activation: when the refresh targets a
+            # subarray the in-flight access is NOT using, start it at t —
+            # overlapping the access — instead of waiting for the bank
+            # (inert at S=1: the lone subarray matches open_sub once any
+            # access has been served, and bank_free <= t before then)
+            start = np.maximum(t, bank_free)
+            start = np.where(hra_c & (new_sub != open_sub), t, start)
+            mark = (np.repeat(picks, S, axis=1)
+                    & np.where(sarp_c, np.repeat(new_sub, S, axis=1)
+                               == sub_of_col, True))
+            ref_until_s = np.where(
+                mark, np.repeat(start + RFC_PB_col, S, axis=1), ref_until_s)
+            open_row_s = np.where(mark, -1, open_row_s)
+            ctr = ctr + picks
+            issued = issued + picks
+            refpb += picks.sum(axis=1)
+            lag_after = due - issued
+            maxlag = np.maximum(
+                maxlag, np.where(picks, np.abs(lag_after), 0).max(axis=1))
+
+        # ---- D: arbitration — at most one request start per channel
+        # (the head request's own subarray's refresh/open-row state is
+        # gathered from the post-refresh [G, B*S] planes, so the arbiter
+        # stays a flat [G, B] step; scores — incl. the drain flag — are
+        # snapshotted before any serve)
+        has_req = demand > 0
+        if not has_req.any():
+            t += 1
+            continue
+        rank_drain_b = np.repeat(rank_drain, NB, axis=1)
+        ru3 = ref_until_s.reshape(G, B, S)
+        head_ru = np.take_along_axis(ru3, h_sub[:, :, None], 2)[:, :, 0]
+        head_or = np.take_along_axis(
+            open_row_s.reshape(G, B, S), h_sub[:, :, None], 2)[:, :, 0]
+        bank_mid = (ru3 > t).any(axis=2)
+        if score_fn is not None:
+            score = np.asarray(score_fn(
+                t, has_req=has_req, head_row=h_row, head_arrive=h_arr,
+                head_is_write=h_w, bank_free=bank_free,
+                head_ref_until=head_ru, bank_mid_ref=bank_mid,
+                open_row=head_or, drain=drain, rank_drain=rank_drain_b))
+        else:
+            score = arbiter_scores_masked(
+                t, has_req=has_req, idle=idle, head_ready=head_ru <= t,
+                bank_mid_ref=bank_mid, head_row=h_row, head_arrive=h_arr,
+                head_is_write=h_w, open_row=head_or, drain=drain,
+                rank_drain=rank_drain_b, rank_can_drain=has_drain_block)
+        for ch in range(NC):
+            sc_ch = score[:, ch * RBC:(ch + 1) * RBC]
+            bs_loc = sc_ch.argmax(axis=1)
+            ok = sc_ch[arG, bs_loc] >= 0
+            if not ok.any():
+                continue
+            gs = np.nonzero(ok)[0]
+            bs = bs_loc[gs] + ch * RBC
+            row, sub = h_row[gs, bs], h_sub[gs, bs]
+            arr, isw = h_arr[gs, bs], h_w[gs, bs]
+            hit = row == head_or[gs, bs]
+            lat = np.where(hit, grid.HIT[gs], grid.MISS[gs])
+            lat = lat + np.where(grid.sarp[gs] & bank_mid[gs, bs],
+                                 grid.SARP_PEN[gs], 0)
+            lat = lat + np.where(isw != last_op[gs, ch], grid.TURN[gs], 0)
+            gr_b = bs // NB
+            lr = last_rank[gs, ch]
+            lat = lat + np.where((lr >= 0) & (lr != gr_b), grid.RTR[gs], 0)
+            done = t + lat
+            bank_free[gs, bs] = done + np.where(isw, grid.WR[gs], 0)
+            last_op[gs, ch] = isw
+            last_rank[gs, ch] = gr_b
+            open_row_s[gs, bs * S + sub] = row
+            open_sub[gs, bs] = sub
+            n_served[gs, bs] += 1
+            hits[gs] += hit
+            misses[gs] += ~hit
+            writes[gs] += isw
+            reads[gs] += ~isw
+            wpend[gs] -= isw
+            drain[gs] &= ~(isw & (wpend[gs] <= LO))
+            rmask = ~isw
+            lrec = np.minimum(done - arr, MAX_LAT_TICKS)
+            lat_sum[gs] += np.where(rmask, lrec, 0)
+            np.add.at(hist, (gs[rmask], lrec[rmask]), 1)
+            last_done[gs] = np.maximum(last_done[gs], done)
+            # refresh the head-of-queue mirror for the served banks
+            gf = gs * B + bs
+            sl = np.minimum(n_served[gs, bs], L - 1)
+            h_arr[gs, bs] = qa[gf, sl]
+            h_row[gs, bs] = qr[gf, sl]
+            h_sub[gs, bs] = qs[gf, sl]
+            h_w[gs, bs] = qw[gf, sl]
+            # ---- E: retire finished cells
+            n_left[gs] -= 1
+            if (n_left[gs] == 0).any():
+                done_cells = gs[n_left[gs] == 0]
+                active[done_cells] = False
+                kind_active[done_cells] = KIND_IDEAL
+                alive = int(active.sum())
+        t += 1
+
+    finished = ~active
+    return [_finalize(grid, g, reads=reads[g], writes=writes[g],
+                      hits=hits[g], misses=misses[g], refpb=refpb[g],
+                      refab=refab[g], lat_sum=lat_sum[g], hist=hist[g],
+                      maxlag=maxlag[g], last_done=last_done[g],
+                      finished=finished[g])
+            for g in range(grid.G)]
+
+
 # ------------------------------------------------ batched backend (closed)
 def _run_batched_closed(grid: _Grid, arbiter: str = "numpy", *,
                         record_commands: bool = False, device=None):
@@ -1098,6 +1428,237 @@ def _run_batched_closed(grid: _Grid, arbiter: str = "numpy", *,
     return cells
 
 
+# ---------------------------------------------------------- scalar oracle
+def _run_scalar_cell(grid: _Grid, g: int) -> CellResult:
+    """Plain-Python reference: one cell, real policy object, same tick
+    contract. Deliberately shares no machine code with the batched path."""
+    spec = grid.spec
+    p, s, d = grid.cells[g]
+    tk = grid.timing[d]
+    B, S = grid.B, grid.S
+    NB, R, NC = grid.NB, grid.R, grid.NC
+    RBC = grid.NR * NB               # banks per channel
+    HI, LO = spec.wbuf_hi, spec.wbuf_lo
+    pol = resolve_policy(p)
+    hra = bool(getattr(pol, "hra", False))
+    budget = tk.budget
+
+    q = []
+    for b in range(B):
+        n = int(grid.n_per_bank[g, b])
+        q.append(list(zip(grid.q_arrive[g, b, :n].tolist(),
+                          grid.q_row[g, b, :n].tolist(),
+                          grid.q_sub[g, b, :n].tolist(),
+                          grid.q_write[g, b, :n].tolist())))
+    total = sum(len(x) for x in q)
+    phase = [b * tk.REFI_PB for b in range(B)]
+    rank_phase = [gr * (tk.REFI // R) for gr in range(R)]
+
+    bank_free = [0] * B
+    ref_until_s = [[0] * S for _ in range(B)]
+    open_row_s = [[-1] * S for _ in range(B)]
+    open_sub = [-1] * B
+    ctr = [0] * B
+    issued = [0] * B
+    n_arrived = [0] * B
+    n_served = [0] * B
+    wpend = 0
+    drain = False
+    last_op = [False] * NC
+    last_rank = [-1] * NC
+    ab_pending = [0] * R
+    rank_drain = [False] * R
+    served = 0
+
+    reads = writes = hits = misses = refpb = refab = 0
+    lat_sum = 0
+    hist = np.zeros(MAX_LAT_TICKS + 1, np.int32)
+    maxlag = 0
+    last_done = 0
+
+    def due(b: int, t: int) -> int:
+        return 0 if t < phase[b] else (t - phase[b]) // tk.REFI + 1
+
+    def start_pb(b: int, t: int):
+        nonlocal refpb, maxlag
+        ns = ctr[b] % S
+        # HiRA: hide the refresh activation behind an in-flight access to
+        # a different subarray (start at t instead of waiting for the bank)
+        start = t if (hra and ns != open_sub[b]) else max(t, bank_free[b])
+        end = start + tk.RFC_PB
+        if pol.sarp:
+            ref_until_s[b][ns] = end
+            open_row_s[b][ns] = -1
+        else:
+            for s_ in range(S):
+                ref_until_s[b][s_] = end
+                open_row_s[b][s_] = -1
+        ctr[b] += 1
+        issued[b] += 1
+        refpb += 1
+        maxlag = max(maxlag, abs(due(b, t) - issued[b]))
+
+    def start_ab(gr: int, t: int):
+        nonlocal refab
+        end = t + tk.RFC_AB
+        for b in range(gr * NB, (gr + 1) * NB):
+            if pol.sarp:
+                ns = ctr[b] % S
+                ref_until_s[b][ns] = end
+                open_row_s[b][ns] = -1
+                ctr[b] += 1
+            else:
+                for s_ in range(S):
+                    ref_until_s[b][s_] = end
+                    open_row_s[b][s_] = -1
+        ab_pending[gr] -= 1
+        rank_drain[gr] = ab_pending[gr] > 0
+        refab += 1
+
+    def apply_ab_decisions(decs, t: int):
+        for dec in decs:
+            if dec.bank == ALL_BANKS:
+                if dec.rank >= 0:
+                    # debt-free ranks skipped: a buggy policy must not
+                    # drive ab_pending negative
+                    if ab_pending[dec.rank] > 0:
+                        start_ab(dec.rank, t)
+                else:
+                    for gr in range(R):
+                        if ab_pending[gr] > 0:
+                            start_ab(gr, t)
+
+    def ab_view(t: int) -> MaintenanceView:
+        return MaintenanceView(
+            now=float(t), n_banks=B, budget=budget,
+            lag=[0] * B, demand=[0] * B,
+            ready=[all(ru <= t for ru in ref_until_s[b])
+                   for b in range(B)],
+            idle=[bank_free[b] <= t for b in range(B)],
+            write_window=drain, max_issues=1,
+            rank_due=sum(ab_pending),
+            rank_quiet=(all(f <= t for f in bank_free)
+                        and all(ru <= t for rb in ref_until_s
+                                for ru in rb)),
+            n_ranks=grid.NR, n_channels=NC,
+            rank_of=grid.rank_of_t, channel_of=grid.chan_of_t,
+            ranks_due=tuple(ab_pending),
+            n_subarrays=S,
+            next_ref_sub=tuple(ctr[b] % S for b in range(B)),
+            refreshing_sub=tuple(_scalar_refreshing_sub(ref_until_s[b], t)
+                                 for b in range(B)),
+            active_sub=tuple(open_sub))
+
+    t = 0
+    while served < total and t < grid.horizon:
+        # A: arrivals
+        for b in range(B):
+            qb, nb = q[b], n_arrived[b]
+            while nb < len(qb) and qb[nb][0] <= t:
+                if qb[nb][3]:
+                    wpend += 1
+                nb += 1
+            n_arrived[b] = nb
+        if wpend >= HI:
+            drain = True
+        # B: per-rank refresh debt (staggered tREFI/R apart)
+        if not pol.ideal and pol.level == "ab":
+            for gr in range(R):
+                if (t > rank_phase[gr]
+                        and (t - rank_phase[gr]) % tk.REFI == 0):
+                    ab_pending[gr] += 1
+                    rank_drain[gr] = True
+        # C: decision
+        if not pol.ideal:
+            if pol.level == "ab":
+                if sum(ab_pending) > 0:
+                    apply_ab_decisions(pol.select(ab_view(t)), t)
+            else:
+                view = MaintenanceView(
+                    now=float(t), n_banks=B, budget=budget,
+                    lag=[due(b, t) - issued[b] for b in range(B)],
+                    demand=[n_arrived[b] - n_served[b] for b in range(B)],
+                    ready=[all(ru <= t for ru in ref_until_s[b])
+                           for b in range(B)],
+                    idle=[bank_free[b] <= t for b in range(B)],
+                    write_window=drain, max_issues=1,
+                    n_ranks=grid.NR, n_channels=NC,
+                    rank_of=grid.rank_of_t, channel_of=grid.chan_of_t,
+                    n_subarrays=S,
+                    next_ref_sub=tuple(ctr[b] % S for b in range(B)),
+                    refreshing_sub=tuple(
+                        _scalar_refreshing_sub(ref_until_s[b], t)
+                        for b in range(B)),
+                    active_sub=tuple(open_sub))
+                for dec in pol.select(view):
+                    if dec.bank == ALL_BANKS:
+                        raise ValueError(
+                            f"policy {pol.name!r} returned ALL_BANKS from "
+                            f"a per-bank (level='pb') decision point")
+                    start_pb(dec.bank, t)
+        # D: arbitration (one start per channel; drain snapshotted)
+        drain_arb = drain
+        for ch in range(NC):
+            best, best_score = -1, -1
+            for b in range(ch * RBC, (ch + 1) * RBC):
+                if n_arrived[b] - n_served[b] <= 0:
+                    continue
+                if rank_drain[b // NB]:
+                    continue
+                arr, row, sub, isw = q[b][n_served[b]]
+                if bank_free[b] > t:
+                    continue
+                if ref_until_s[b][sub] > t:
+                    continue
+                sc = (W_WRITE if (drain_arb and isw) else 0) \
+                    + (W_HIT if row == open_row_s[b][sub] else 0) \
+                    + (0 if any(ru > t for ru in ref_until_s[b])
+                       else W_NOCONF) \
+                    + min(t - arr, AGE_CAP)
+                if sc > best_score:
+                    best, best_score = b, sc
+            if best >= 0:
+                b = best
+                gr = b // NB
+                arr, row, sub, isw = q[b][n_served[b]]
+                hit = row == open_row_s[b][sub]
+                lat = tk.HIT if hit else tk.MISS
+                if pol.sarp and any(ru > t for ru in ref_until_s[b]):
+                    lat += tk.SARP_PEN
+                if isw != last_op[ch]:
+                    lat += tk.TURN
+                if 0 <= last_rank[ch] != gr:
+                    lat += tk.RTR
+                done = t + lat
+                bank_free[b] = done + (tk.WR if isw else 0)
+                last_op[ch] = isw
+                last_rank[ch] = gr
+                open_row_s[b][sub] = row
+                open_sub[b] = sub
+                n_served[b] += 1
+                served += 1
+                if hit:
+                    hits += 1
+                else:
+                    misses += 1
+                if isw:
+                    writes += 1
+                    wpend -= 1
+                    if drain and wpend <= LO:
+                        drain = False
+                else:
+                    reads += 1
+                    lat_sum += min(done - arr, MAX_LAT_TICKS)
+                    hist[min(done - arr, MAX_LAT_TICKS)] += 1
+                last_done = max(last_done, done)
+        t += 1
+
+    return _finalize(grid, g, reads=reads, writes=writes, hits=hits,
+                     misses=misses, refpb=refpb, refab=refab,
+                     lat_sum=lat_sum, hist=hist, maxlag=maxlag,
+                     last_done=last_done, finished=served >= total)
+
+
 # ------------------------------------------------- scalar oracle (closed)
 def _run_scalar_cell_closed(grid: _Grid, g: int) -> CellResult:
     """Plain-Python closed-loop reference: one cell, real policy object,
@@ -1400,6 +1961,33 @@ def _resolve_device(device, backend: str):
     return dev
 
 
+def _run_torch_open(grid: _Grid, arbiter: str = "torch",
+                    device=None) -> list[CellResult]:
+    """Open-loop mode as a host-driven loop over the torch tick body
+    (`sweep.torchbody`, the counterpart of the reference's jitted
+    `lax.while_loop`): state lives in int32/bool tensors on `device`,
+    one eager tick per iteration, bit-identical to numpy and the scalar
+    oracle. `arbiter="cuda"` scores through the arbiter kernel in its
+    open form (no occupancy plane)."""
+    _check_traced_guards(grid)
+    from repro_torch.core.sweep import torchbody
+    from repro_torch.kernels.sweep_arbiter import arbiter_for
+
+    dev = _resolve_device(device, "torch")
+    scores = arbiter_for(arbiter)
+    cfg = torchbody.open_cfg(grid)
+    cst = torchbody.open_consts(grid, dev)
+    out = torchbody.state_to_numpy(torchbody.run_open(cfg, cst, scores))
+    finished = out["n_served"].sum(axis=1) >= grid.n_tot
+    return [_finalize(grid, g, reads=out["reads"][g],
+                      writes=out["writes"][g], hits=out["hits"][g],
+                      misses=out["misses"][g], refpb=out["refpb"][g],
+                      refab=out["refab"][g], lat_sum=out["lat_sum"][g],
+                      hist=out["hist"][g], maxlag=out["maxlag"][g],
+                      last_done=out["last_done"][g], finished=finished[g])
+            for g in range(grid.G)]
+
+
 def _run_torch_closed(grid: _Grid, arbiter: str = "torch",
                       device=None) -> list[CellResult]:
     """Closed-loop mode as a host-driven loop over the torch tick body
@@ -1434,11 +2022,12 @@ def _run_torch_closed(grid: _Grid, arbiter: str = "torch",
 # ----------------------------------------------------- megakernel backend
 def _run_mega(grid: _Grid, n_shards: int = 1, device=None,
               seconds: Optional[dict] = None) -> list[CellResult]:
-    """The CUDA tick-loop megakernel
-    (`repro_torch.kernels.sweep_megakernel`): every cell runs its whole
-    tick loop in one thread of one launch, reads its scenario's stream
-    plane by index, exits alone, and ships home only its integer stat row
-    (p99 reduced in the kernel — no [G, 4096] histogram round-trip).
+    """The CUDA tick-loop megakernels
+    (`repro_torch.kernels.sweep_megakernel`, one for each mode): every
+    cell runs its whole tick loop in one thread of one launch, reads its
+    scenario's stream plane by index, exits alone, and ships home only
+    its integer stat row (p99 reduced in the kernel — no [G, 4096]
+    histogram round-trip).
     With CPU tensors the same host layout runs the plain version
     (`sweep.torchbody`) instead. Bit-identical to every other backend.
     `seconds`, when given, receives the wall seconds of the device run
@@ -1457,7 +2046,7 @@ def _run_mega(grid: _Grid, n_shards: int = 1, device=None,
                       hist=None, maxlag=out["maxlag"][g],
                       last_done=out["last_done"][g],
                        finished=out["finished"][g], p99=out["p99"][g],
-                       core_finish=cf[g])
+                       core_finish=None if cf is None else cf[g])
              for g in range(grid.G)]
     if seconds is not None:
         seconds.update(run=t1 - t0, finalize=time.perf_counter() - t1)
@@ -1471,10 +2060,10 @@ def sweep(spec: SweepSpec, backend: str = "mega",
           device=None) -> SweepResult:
     """Run the whole grid.
 
-    backend="mega"    : the CUDA tick-loop megakernel
-                        (`repro_torch.kernels.sweep_megakernel`), the
-                        default; built-in policy classes only; `n_shards`
-                        > 1 splits the cell axis across cards,
+    backend="mega"    : the CUDA tick-loop megakernels
+                        (`repro_torch.kernels.sweep_megakernel`, one per
+                        mode), the default; built-in policy classes only;
+                        `n_shards` > 1 splits the cell axis across cards,
     backend="torch"   : a host-driven loop over the torch tick body
                         (`sweep.torchbody`), built-in policy classes only,
     backend="batched" : stacked-numpy lock-step on the host (supports
@@ -1492,11 +2081,12 @@ def sweep(spec: SweepSpec, backend: str = "mega",
     default), "torch" (torch default), or "cuda" (the kernel in
     `repro_torch.kernels.sweep_arbiter`, for "batched" and "torch").
 
-    Only `spec.mode == "closed"` is ported; closed-loop cells carry
-    `core_finish`, making `CellResult.weighted_speedup_vs` (the paper's
-    metric) available.
+    Every backend runs both `spec.mode` values; closed-loop cells
+    additionally carry `core_finish`, making
+    `CellResult.weighted_speedup_vs` (the paper's metric) available.
 
-    `record_commands=True` (batched or mega backend) additionally emits
+    `record_commands=True` (batched or mega backend, closed mode only)
+    additionally emits
     a per-cell DFI-style command trace, retrievable via
     `SweepResult.commands_for(policy, scenario, density)` — the same
     `repro_torch.core.commands.CmdTrace` `DramSim.run_ticks` emits,
@@ -1505,15 +2095,11 @@ def sweep(spec: SweepSpec, backend: str = "mega",
     backend and *reconciles* — every CellResult must match bit-for-bit,
     or the sweep raises.
     """
-    if spec.mode != "closed":
-        raise NotImplementedError(
-            "the PyTorch/CUDA port runs closed-loop sweeps only so far: "
-            "mode='open' (the open-loop runners and the open-loop "
-            "tick-loop kernel) belongs to the open-loop slice of the port")
-    if record_commands and backend not in ("batched", "mega"):
+    closed = spec.mode == "closed"
+    if record_commands and not (backend in ("batched", "mega") and closed):
         raise ValueError(
-            "record_commands=True needs backend='batched' or 'mega' "
-            "(the torch/scalar backends do not emit; use "
+            "record_commands=True needs backend='batched' or 'mega' and "
+            "mode='closed' (the torch/scalar backends do not emit; use "
             "DramSim.run_ticks(record_commands=True) per cell instead)")
     if n_shards != 1 and backend != "mega":
         raise ValueError(
@@ -1546,16 +2132,19 @@ def sweep(spec: SweepSpec, backend: str = "mega",
         arb = arbiter or "numpy"
         if arb == "cuda":
             device = _resolve_device(device, "batched")
-        if record_commands:
+        if not closed:
+            cells = _run_batched(grid, arbiter=arb, device=device)
+        elif record_commands:
             cells, traces = _run_batched_closed(
                 grid, arbiter=arb, record_commands=True, device=device)
         else:
             cells = _run_batched_closed(grid, arbiter=arb, device=device)
     elif backend == "torch":
-        cells = _run_torch_closed(grid, arbiter=arbiter or "torch",
-                                  device=device)
+        run = _run_torch_closed if closed else _run_torch_open
+        cells = run(grid, arbiter=arbiter or "torch", device=device)
     elif backend == "scalar":
-        cells = [_run_scalar_cell_closed(grid, g) for g in range(grid.G)]
+        run_cell = _run_scalar_cell_closed if closed else _run_scalar_cell
+        cells = [run_cell(grid, g) for g in range(grid.G)]
     else:
         raise ValueError(f"unknown sweep backend {backend!r}")
     res = SweepResult(spec, cells, backend)

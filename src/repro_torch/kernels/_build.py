@@ -13,7 +13,8 @@ all started together, and one link step joins them.
 
 Constants the kernels share with the Python side (`core/sweep/fields.py`
 score bits and `MP_*`/`MS_*` column tables, `KIND_*` policy kinds, the
-histogram width and the never-arrives sentinel) are written into
+histogram width, the never-arrives sentinel and the widest cell the
+megakernels take) are written into
 `sweep_fields.h` from the Python definitions at build time; the `.cu`
 sources never spell them as literals.
 
@@ -50,6 +51,7 @@ def _fields_header() -> str:
     from the Python single sources of truth."""
     from repro_torch.core.sweep import fields, policies
     from repro_torch.core.sweep.engine import MAX_LAT_TICKS, _PAD_ARRIVE
+    from repro_torch.kernels.sweep_megakernel import MAX_BANKS
     lines = ["// generated by repro_torch/kernels/_build.py - do not edit",
              "#pragma once"]
     for name in fields.__all__:
@@ -60,6 +62,7 @@ def _fields_header() -> str:
     lines.append(f"#define POLICY_KD {int(policies._KD)}")
     lines.append(f"#define MAX_LAT_TICKS {int(MAX_LAT_TICKS)}")
     lines.append(f"#define PAD_ARRIVE {int(_PAD_ARRIVE)}")
+    lines.append(f"#define SWEEP_MAX_BANKS {int(MAX_BANKS)}")
     return "\n".join(lines) + "\n"
 
 
@@ -100,6 +103,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sweep_mega_closed_launch.restype = i
     lib.sweep_mega_closed_scratch_words.argtypes = [i] * 7
     lib.sweep_mega_closed_scratch_words.restype = ctypes.c_longlong
+    lib.sweep_mega_open_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+    lib.sweep_mega_open_launch.restype = i
+    lib.sweep_mega_open_scratch_words.argtypes = [i] * 4
+    lib.sweep_mega_open_scratch_words.restype = ctypes.c_longlong
     lib.sweep_error_string.argtypes = [i]
     lib.sweep_error_string.restype = ctypes.c_char_p
 

@@ -32,7 +32,8 @@
 // density and policy - touch the same words in the same lines while they
 // run in step. The ring queues (5 * B * LQ words) and the 4096-bin
 // latency histogram are per cell and too big for shared memory; they
-// live in scratch the wrapper allocates (the histogram zeroed).
+// live in scratch the wrapper allocates (the histogram zeroed). Cells of
+// more than 64 banks run the wide instantiation (sweep_tick.cuh).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,6 +115,7 @@ struct RingHeads {
   }
 };
 
+template <int W>
 __global__ void sweep_mega_closed_kernel(MegaClosedArgs a) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= a.n) return;
@@ -155,7 +157,7 @@ __global__ void sweep_mega_closed_kernel(MegaClosedArgs a) {
   cn.reads = cn.writes = cn.hits = cn.misses = 0;
   cn.refpb = cn.refab = cn.lat_sum = cn.maxlag = cn.last_done = 0;
 
-  int dem[SWEEP_MAX_BANKS];
+  int dem[64 * W];
   int t = 0;
   while (active && t < P.horizon) {
     // ---- 0: outstanding-read completions
@@ -234,7 +236,7 @@ __global__ void sweep_mega_closed_kernel(MegaClosedArgs a) {
     // ---- 4: refresh decisions (queue depth after this tick's appends)
     for (int b = 0; b < B; ++b)
       dem[b] = st(L.q_tail + b) - st(L.q_head + b);
-    const uint64_t mid = refresh_decide(d, P, L.m, st, now, dem, cn);
+    const BankSet<W> mid = refresh_decide<W>(d, P, L.m, st, now, dem, cn);
 
     // ---- 5: occupancy-aware arbitration + serve, one start per channel
     // in channel order; the drain flag is snapshotted before any serve
@@ -316,6 +318,11 @@ extern "C" int sweep_mega_closed_launch(
   a.d.HI = HI; a.d.LO = LO;
   a.C = C; a.N = N; a.K = K; a.LQ = LQ; a.CAP = CAP;
   int blocks = (n + threads - 1) / threads;
-  sweep_mega_closed_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  if (B <= 64)
+    sweep_mega_closed_kernel<1>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  else
+    sweep_mega_closed_kernel<SWEEP_WIDE_WORDS>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,24 +2,71 @@
 // (phase 3 / B), the policy decisions of every vectorized policy kind
 // with SARP/HiRA subarray marking (phase 4 / C), and the packed-score
 // arbitration and serve of one channel (phase 5 / D). The closed-loop
-// kernel drives them from ring bank queues; an open-loop kernel can drive
-// the same functions from its arrival FIFOs through another `Heads` type.
+// kernel (sweep_megakernel.cu) drives them from its ring bank queues, the
+// open-loop kernel (sweep_megakernel_open.cu) from its arrival FIFOs,
+// each through its own `Heads` type.
 //
 // The definitions these functions restate, line for line, are
 // `select_batch_torch` (repro_torch/core/sweep/policies.py) and
-// `closed_body` (repro_torch/core/sweep/torchbody.py). All arithmetic is
-// int32; every scan over banks runs lowest index first and replaces its
-// best only on a strictly greater key, so ties break toward the lowest
-// bank exactly like a first-maximum argmax. Every `/` and `%` has a
-// non-negative left operand, guarded ahead of the division.
+// `closed_body` / `open_body` (repro_torch/core/sweep/torchbody.py). All
+// arithmetic is int32; every scan over banks runs lowest index first and
+// replaces its best only on a strictly greater key, so ties break toward
+// the lowest bank exactly like a first-maximum argmax. Every `/` and `%`
+// has a non-negative left operand, guarded ahead of the division.
+//
+// Sets of banks (and of ranks: a cell never has more ranks than banks)
+// are `BankSet<W>`s of W 64-bit words. Both kernels are instantiated
+// twice: W = 1 for cells of up to 64 banks, where every set is one
+// register as in a plain mask, and W = SWEEP_MAX_BANKS / 64 for wider
+// cells; the launch function picks by the bank count. SWEEP_MAX_BANKS
+// comes from the generated header (`MAX_BANKS` of
+// kernels/sweep_megakernel.py).
 #pragma once
 #include <stdint.h>
 
 #include "sweep_fields.h"
 #include "sweep_score.cuh"
 
-// Banks per cell are tracked in 64-bit masks and two per-thread arrays.
-#define SWEEP_MAX_BANKS 64
+#define SWEEP_WIDE_WORDS (SWEEP_MAX_BANKS / 64)
+
+template <int W>
+struct BankSet {
+  uint64_t w[W];
+  // with one word the index is a constant, so the set stays in a register
+  __device__ __forceinline__ static int word(int b) {
+    return W == 1 ? 0 : (b >> 6);
+  }
+  __device__ __forceinline__ void clear() {
+    for (int i = 0; i < W; ++i) w[i] = 0;
+  }
+  __device__ __forceinline__ void set(int b) {
+    w[word(b)] |= 1ull << (b & 63);
+  }
+  __device__ __forceinline__ bool test(int b) const {
+    return (w[word(b)] >> (b & 63)) & 1ull;
+  }
+  __device__ __forceinline__ bool any() const {
+    uint64_t a = 0;
+    for (int i = 0; i < W; ++i) a |= w[i];
+    return a != 0;
+  }
+  __device__ __forceinline__ BankSet complement() const {
+    BankSet c;
+    for (int i = 0; i < W; ++i) c.w[i] = ~w[i];
+    return c;
+  }
+  // every member of [lo, lo + n) is in the set
+  __device__ __forceinline__ bool all_in(int lo, int n) const {
+    if constexpr (W == 1) {
+      uint64_t m = ((n >= 64) ? ~0ull : ((1ull << n) - 1)) << lo;
+      return (w[0] & m) == m;
+    } else {
+      for (int b = lo; b < lo + n; ++b)
+        if (!test(b)) return false;
+      return true;
+    }
+  }
+};
 
 struct TickDims {
   int B, S, NB, NR, NC, R;  // banks, subarrays/bank, banks/rank,
@@ -143,30 +190,33 @@ __device__ __forceinline__ void refresh_debt(const TickDims& d,
         best_key_ = k_;                                 \
       }                                                 \
     }                                                   \
-    if (best_ >= 0) picks |= 1ull << best_;             \
+    if (best_ >= 0) picks.set(best_);                   \
   } while (0)
 
 // ---- phase 4a: the vectorized per-bank policy families
-// (`select_batch`): returns the pick mask and advances the round-robin
-// pointer. `lag`/`dem` are per-bank arrays, `ready`/`idle` bank masks.
-__device__ __forceinline__ uint64_t policy_select(
-    const TickDims& d, const CellParams& P, const int* lag, uint64_t ready,
-    uint64_t idle, const int* dem, bool ww, int& rr) {
+// (`select_batch`): returns the pick set and advances the round-robin
+// pointer. `lag`/`dem` are per-bank arrays, `ready`/`idle` bank sets.
+template <int W>
+__device__ __forceinline__ BankSet<W> policy_select(
+    const TickDims& d, const CellParams& P, const int* lag,
+    const BankSet<W>& ready, const BankSet<W>& idle, const int* dem,
+    bool ww, int& rr) {
   const int B = d.B, kind = P.kind, bud = P.budget;
-  if (kind < KIND_RR || kind >= KIND_CUSTOM) return 0;
-#define RDY(b) ((ready >> (b)) & 1ull)
-#define IDL(b) ((idle >> (b)) & 1ull)
+  BankSet<W> picks;
+  picks.clear();
+  if (kind < KIND_RR || kind >= KIND_CUSTOM) return picks;
+#define RDY(b) ready.test(b)
+#define IDL(b) idle.test(b)
   // forced sweep: every bank at the postpone edge refreshes now, and any
   // forced pick exhausts the regular allowance (max_issues == 1)
-  uint64_t picks = 0;
   for (int b = 0; b < B; ++b)
-    if (lag[b] >= bud && RDY(b)) picks |= 1ull << b;
-  if (picks) return picks;
+    if (lag[b] >= bud && RDY(b)) picks.set(b);
+  if (picks.any()) return picks;
 
   if (kind == KIND_RR) {
     int idx = rr % B;
     if (lag[idx] > 0 && RDY(idx)) {
-      picks = 1ull << idx;
+      picks.set(idx);
       rr += 1;
     }
   } else if (kind == KIND_DARP) {
@@ -176,18 +226,17 @@ __device__ __forceinline__ uint64_t policy_select(
                     lag[b]);
   } else if (kind == KIND_RDARP) {
     bool pull = ww && P.wrp;
-    uint64_t rank_idle = 0;  // per bank: its rank has no demand at all
+    BankSet<W> rank_idle;  // per bank: its rank has no demand at all
+    rank_idle.clear();
     for (int r = 0; r < B / d.NB; ++r) {
       int sum = 0;
       for (int b = r * d.NB; b < (r + 1) * d.NB; ++b) sum += dem[b];
       if (sum == 0)
-        for (int b = r * d.NB; b < (r + 1) * d.NB; ++b)
-          rank_idle |= 1ull << b;
+        for (int b = r * d.NB; b < (r + 1) * d.NB; ++b) rank_idle.set(b);
     }
     SWEEP_PICK_BEST(RDY(b) && IDL(b) && dem[b] == 0 &&
                         (pull ? lag[b] > -bud : lag[b] > 0),
-                    (int)((rank_idle >> b) & 1ull) * POLICY_KD +
-                        (lag[b] + bud));
+                    (int)rank_idle.test(b) * POLICY_KD + (lag[b] + bud));
   } else if (kind == KIND_ELASTIC) {
     int pressure = 0;
     for (int b = 0; b < B; ++b) pressure += dem[b];
@@ -203,10 +252,10 @@ __device__ __forceinline__ uint64_t policy_select(
     // behind-access first, idle fallback, write-window pull-in last
     SWEEP_PICK_BEST(RDY(b) && lag[b] > 0 && dem[b] > 0,
                     dem[b] * POLICY_KD + (lag[b] + bud));
-    if (!picks)
+    if (!picks.any())
       SWEEP_PICK_BEST(RDY(b) && IDL(b) && lag[b] > 0 && dem[b] == 0,
                       lag[b]);
-    if (!picks && ww) {
+    if (!picks.any() && ww) {
       // reached only when neither a hot nor a cold candidate exists
       SWEEP_PICK_BEST(RDY(b) && lag[b] > -bud,
                       dem[b] * POLICY_KD + (lag[b] + bud));
@@ -220,55 +269,56 @@ __device__ __forceinline__ uint64_t policy_select(
 // ---- phase 4: refresh decisions of an ACTIVE cell at tick t.
 // `dem[b]` is the bank's queue depth. Applies all-bank starts (ref_ab,
 // staggered_ab) and per-bank picks with SARP/HiRA subarray marking, and
-// returns the mask of banks with any subarray mid-refresh AFTER the
+// returns the set of banks with any subarray mid-refresh AFTER the
 // marks (the arbitration step's `bank_mid_ref`).
-__device__ __forceinline__ uint64_t refresh_decide(
+template <int W>
+__device__ __forceinline__ BankSet<W> refresh_decide(
     const TickDims& d, const CellParams& P, const MachineLayout& L,
     const Cell& st, int t, const int* dem, Counters& c) {
   const int B = d.B, S = d.S, NB = d.NB;
-  int lag[SWEEP_MAX_BANKS];
-  uint64_t ready = 0, idle = 0;
+  int lag[64 * W];
+  BankSet<W> ready, idle;
+  ready.clear();
+  idle.clear();
   for (int b = 0; b < B; ++b) {
     int phase = b * P.REFI_PB;
     int due = t >= phase ? (t - phase) / P.REFI + 1 : 0;
     lag[b] = due - st(L.issued + b);
     bool rdy = true;
     for (int s = 0; s < S; ++s) rdy = rdy && st(L.ref_until + b * S + s) <= t;
-    if (rdy) ready |= 1ull << b;
-    if (st(L.bank_free + b) <= t) idle |= 1ull << b;
+    if (rdy) ready.set(b);
+    if (st(L.bank_free + b) <= t) idle.set(b);
   }
-  uint64_t picks =
-      policy_select(d, P, lag, ready, idle, dem, c.drain != 0, c.rr);
+  BankSet<W> picks =
+      policy_select<W>(d, P, lag, ready, idle, dem, c.drain != 0, c.rr);
 
   // all-bank starts: ref_ab starts every quiet rank that owes a refresh;
   // staggered_ab walks the ranks round-robin and also needs the whole
   // channel free of refreshes
-  uint64_t start_ab = 0;
+  BankSet<W> start_ab;  // a set of ranks
+  start_ab.clear();
   if (P.kind == KIND_AB || P.kind == KIND_STAG) {
-    uint64_t quiet = 0;
-    for (int r = 0; r < d.R; ++r) {
-      uint64_t m = ((NB >= 64) ? ~0ull : ((1ull << NB) - 1)) << (r * NB);
-      if ((idle & m) == m && (ready & m) == m) quiet |= 1ull << r;
-    }
+    BankSet<W> quiet;  // ranks whose banks are all idle and ready
+    quiet.clear();
+    for (int r = 0; r < d.R; ++r)
+      if (idle.all_in(r * NB, NB) && ready.all_in(r * NB, NB)) quiet.set(r);
     if (P.kind == KIND_AB) {
       for (int r = 0; r < d.R; ++r)
-        if (st(L.ab_pending + r) > 0 && ((quiet >> r) & 1ull))
-          start_ab |= 1ull << r;
+        if (st(L.ab_pending + r) > 0 && quiet.test(r)) start_ab.set(r);
     } else {
       int idx = c.ab_rr % d.R;
       int RBC = d.NR * NB;
       int ch = idx / d.NR;
-      uint64_t m = ((RBC >= 64) ? ~0ull : ((1ull << RBC) - 1)) << (ch * RBC);
-      if (st(L.ab_pending + idx) > 0 && ((quiet >> idx) & 1ull) &&
-          (ready & m) == m) {
-        start_ab |= 1ull << idx;
+      if (st(L.ab_pending + idx) > 0 && quiet.test(idx) &&
+          ready.all_in(ch * RBC, RBC)) {
+        start_ab.set(idx);
         c.ab_rr += 1;
       }
     }
   }
-  uint64_t mid = ~ready;  // banks with a subarray still refreshing
+  BankSet<W> mid = ready.complement();  // a subarray still refreshing
   for (int r = 0; r < d.R; ++r) {
-    if (!((start_ab >> r) & 1ull)) continue;
+    if (!start_ab.test(r)) continue;
     int end = t + P.RFC_AB;
     for (int b = r * NB; b < (r + 1) * NB; ++b) {
       if (P.sarp) {
@@ -283,7 +333,7 @@ __device__ __forceinline__ uint64_t refresh_decide(
           st(L.open_row + b * S + s) = -1;
         }
       }
-      mid |= 1ull << b;
+      mid.set(b);
     }
     int left = st(L.ab_pending + r) - 1;
     st(L.ab_pending + r) = left;
@@ -292,7 +342,7 @@ __device__ __forceinline__ uint64_t refresh_decide(
   }
 
   for (int b = 0; b < B; ++b) {
-    if (!((picks >> b) & 1ull)) continue;
+    if (!picks.test(b)) continue;
     int ctr = st(L.ctr + b);
     int ns = ctr % S;
     int bf = st(L.bank_free + b);
@@ -316,7 +366,7 @@ __device__ __forceinline__ uint64_t refresh_decide(
     int after = lag[b] - 1;  // due - issued, after this issue
     if (after < 0) after = -after;
     if (after > c.maxlag) c.maxlag = after;
-    mid |= 1ull << b;
+    mid.set(b);
   }
   return mid;
 }
@@ -327,12 +377,14 @@ struct Head {
 };
 
 // ---- phase 5a: the best eligible bank of channel `ch` (or -1).
-// `heads.has(b)` / `heads.get(b)` expose the bank queues; `drain_arb` is
-// the drain flag snapshotted before any serve of this tick.
-template <class Heads>
+// `heads.has(b)` / `heads.get(b)` expose the bank queues; `occ` is the
+// per-bank occupancy (nullptr: the open-loop form, field 0);
+// `drain_arb` is the drain flag snapshotted before any serve of this
+// tick.
+template <int W, class Heads>
 __device__ __forceinline__ int arbitrate_channel(
     const TickDims& d, const MachineLayout& L, const Cell& st, int t,
-    int ch, const Heads& heads, const int* occ, uint64_t mid,
+    int ch, const Heads& heads, const int* occ, const BankSet<W>& mid,
     bool drain_arb, Head& best_head) {
   const int RBC = d.NR * d.NB;
   int best = -1, best_score = -1;
@@ -344,7 +396,7 @@ __device__ __forceinline__ int arbitrate_channel(
     if (st(L.ref_until + b * d.S + h.sub) > t) continue;
     int sc = arbiter_score(t, drain_arb && h.is_write, occ ? occ[b] : 0,
                            h.row == st(L.open_row + b * d.S + h.sub),
-                           (mid >> b) & 1ull, h.arrive);
+                           mid.test(b), h.arrive);
     if (sc > best_score) {
       best = b;
       best_score = sc;
@@ -357,15 +409,16 @@ __device__ __forceinline__ int arbitrate_channel(
 // ---- phase 5b: start head `h` of bank `b` on channel `ch` at tick t.
 // Updates the machine state, the counters and (for reads) the cell's
 // latency histogram; returns the data-return tick.
+template <int W>
 __device__ __forceinline__ int serve_bank(
     const TickDims& d, const CellParams& P, const MachineLayout& L,
     const Cell& st, int* hist, size_t hist_stride, int t, int ch, int b,
-    const Head& h, uint64_t mid, Counters& c) {
+    const Head& h, const BankSet<W>& mid, Counters& c) {
   bool hit = h.row == st(L.open_row + b * d.S + h.sub);
   int rank = b / d.NB;
   int lr = st(L.last_rank + ch);
   int lat = (hit ? P.HIT : P.MISS) +
-            ((P.sarp && ((mid >> b) & 1ull)) ? P.SARP_PEN : 0) +
+            ((P.sarp && mid.test(b)) ? P.SARP_PEN : 0) +
             ((h.is_write != 0) != (st(L.last_op + ch) != 0) ? P.TURN : 0) +
             ((lr >= 0 && lr != rank) ? P.RTR : 0);
   int done = t + lat;

@@ -1,24 +1,27 @@
-"""The closed-loop tick loop of the sweep engine as one CUDA kernel.
+"""The tick loop of the sweep engine as one CUDA kernel per mode.
 
-Replaces the TPU kernel `_mega_closed_kernel` / `_closed_call` of the JAX
-package (`repro/kernels/sweep_megakernel.py`) and carries the host side
-of its `run_mega`: the packed per-cell params block, the scenario-major
-sort, chunk streaming and the un-sort. The open-loop kernel
-(`_mega_open_kernel`) is not ported yet.
+Replaces the TPU kernels `_mega_closed_kernel` / `_closed_call` (A1) and
+`_mega_open_kernel` / `_open_call` (A2) of the JAX package
+(`repro/kernels/sweep_megakernel.py`) and carries the host side of its
+`run_mega`: the packed per-cell params block, the scenario-major sort,
+chunk streaming and the un-sort.
 
-As beside every kernel of this package:
+As beside every kernel of this package, for each of the two:
 
-  * the plain PyTorch version is `torchbody.closed_body` driven to
-    completion (`_plain_closed_cells`), the definition the kernel is held
-    against bit for bit;
-  * `mega_closed_cells` is the wrapper around the hand-written kernel
-    `sweep_mega_closed_kernel` (`csrc/sweep_megakernel.cu`): it takes the
-    plain version only for tensors that lie on the CPU, and for CUDA
-    tensors launches the kernel or raises;
-  * `LAUNCHES` is a plain integer, incremented where the kernel is
-    launched and nowhere else.
+  * the plain PyTorch version is `torchbody.closed_body` /
+    `torchbody.open_body` driven to completion (`_plain_closed_cells` /
+    `_plain_open_cells`), the definition the kernel is held against bit
+    for bit;
+  * `mega_closed_cells` / `mega_open_cells` is the wrapper around the
+    hand-written kernel `sweep_mega_closed_kernel`
+    (`csrc/sweep_megakernel.cu`) / `sweep_mega_open_kernel`
+    (`csrc/sweep_megakernel_open.cu`): it takes the plain version only
+    for tensors that lie on the CPU, and for CUDA tensors launches the
+    kernel or raises;
+  * `LAUNCHES` / `OPEN_LAUNCHES` is a plain integer, incremented where
+    the kernel is launched and nowhere else.
 
-What bounds the kernel on an H100: latency. A cell's inputs and outputs
+What bounds the kernels on an H100: latency. A cell's inputs and outputs
 are a few hundred bytes and its arithmetic is a few hundred integer
 operations a tick, but the ticks of one cell form a serial chain of
 dependent loads and stores on that cell's own state. The design therefore
@@ -34,13 +37,20 @@ Layout: cells are sorted scenario-major (then density, then policy kind)
 so that neighbouring threads replay the same demand stream and take
 similar branches; each cell reads its scenario's stream plane at
 `scn_of_cell` (a 10^5-cell grid carries `n_scenarios` stream copies, not
-10^5). Cells go to the device in chunks of `chunk_cells`, which bounds
-the scratch (ring queues `5*B*LQ` words and a 4096-bin histogram per
-cell, about 37 KB at B=8, LQ=128); no pad rows are needed, the last block
-masks its tail, and the `MP_PAD` column stays 0 and is not read. With
+10^5): closed, the per-core streams ``sw sb sr ssub sth [NS, C, N]``
+and `nreq [NS, C]`; open, the per-bank arrival FIFOs ``qa qr qs qw [NS,
+B, L]`` and `npb [NS, B]`. Cells go to the device in chunks of
+`chunk_cells`, which bounds the scratch (a 4096-bin histogram per cell,
+plus ring queues of `5*B*LQ` words closed: about 37 KB a cell at B=8,
+LQ=128, and 17 KB open); no pad rows are needed, the last block masks
+its tail, and the `MP_PAD` column stays 0 and is not read. With
 `n_shards` cards the sorted rows are cut into that many contiguous
 shares; a card is sent its share's rows and the stream planes of the
 scenarios they name, and nothing else.
+
+Cells of up to `MAX_BANKS` global banks are taken; the kernels keep sets
+of banks in one register up to 64 banks and in `MAX_BANKS / 64` words
+above (a second instantiation, `csrc/sweep_tick.cuh`).
 """
 from __future__ import annotations
 
@@ -68,6 +78,8 @@ from repro_torch.kernels.sweep_arbiter import arbiter_scores_torch
 
 #: number of kernel launches made by `mega_closed_cells` in this process
 LAUNCHES = 0
+#: number of kernel launches made by `mega_open_cells` in this process
+OPEN_LAUNCHES = 0
 
 #: device scratch a chunk may take (ring queues + histograms); the
 #: default `chunk_cells` is the largest cell count that fits
@@ -77,10 +89,13 @@ SCRATCH_BYTES = 8 << 30
 #: retire sooner and spread over the SMs more evenly
 MAX_THREADS = 64
 
-#: banks per cell the kernel supports (bank sets are 64-bit masks)
-MAX_BANKS = 64
+#: global banks per cell the kernels take (bank sets of up to
+#: `MAX_BANKS / 64` 64-bit words; written into the kernels' generated
+#: header as SWEEP_MAX_BANKS)
+MAX_BANKS = 256
 
 _STREAMS = ("sw", "sb", "sr", "ssub", "sth")
+_OPEN_STREAMS = ("qa", "qr", "qs", "qw")
 
 
 # ------------------------------------------------------------ host layout
@@ -120,7 +135,17 @@ def _layout(grid) -> np.ndarray:
 
 
 def _default_chunk(cfg) -> int:
-    words = 5 * cfg.B * cfg.LQ + (MAX_LAT_TICKS + 1) + 4 * cfg.B * cfg.S
+    """Cells whose scratch fits `SCRATCH_BYTES`: the histogram, the
+    machine state (`2*B*S + 5*B + 2*NC + 2*R` words) and the mode's own
+    (closed: ring queues, core state and MLP slots; open: the FIFO
+    counts `n_arrived`, `n_served`), as `*_layout` in the sources."""
+    B = cfg.B
+    words = ((MAX_LAT_TICKS + 1) + 2 * B * cfg.S + 5 * B + 2 * cfg.NC
+             + 2 * cfg.R)
+    if cfg.closed:
+        words += 5 * B * cfg.LQ + 2 * B + cfg.C * (5 + cfg.K)
+    else:
+        words += 2 * B
     return max(1, SCRATCH_BYTES // (4 * words))
 
 
@@ -182,6 +207,23 @@ def _plain_closed_cells(cfg, params, scn_of_cell, streams, nreq):
     return stats, cf.to(torch.int32), None
 
 
+def _plain_open_cells(cfg, params, scn_of_cell, streams, npb):
+    """The plain PyTorch version of the open-loop kernel:
+    `torchbody.open_body` run until every cell of the block has served
+    its requests or the horizon is reached (a finished cell is inert in
+    the shared loop), then the same stat reduction."""
+    n, B, L = params.shape[0], cfg.B, cfg.L
+    scn = scn_of_cell.to(torch.int64)
+    cst = {k: streams[k][scn].reshape(n * B, L) for k in _OPEN_STREAMS}
+    cst["qw"] = cst["qw"] != 0
+    cst["n_pb"] = npb[scn]
+    cst["n_tot"] = cst["n_pb"].sum(dim=1).to(torch.int32)
+    cst.update(_param_consts(params, cfg))
+    out = torchbody.run_open(cfg, cst, arbiter_scores_torch)
+    finished = out["n_served"].sum(dim=1) >= cst["n_tot"]
+    return _pack_stats(out, finished), None
+
+
 # ---------------------------------------------------- operations counted
 def closed_operations(cfg, params, stats, ticks) -> int:
     """Integer operations `sweep_mega_closed_kernel` performs for these
@@ -223,17 +265,9 @@ def closed_operations(cfg, params, stats, ticks) -> int:
     for issued ones (equal when the cell finished)."""
     B, S, C, K, R, NC, NB = (cfg.B, cfg.S, cfg.C, cfg.K, cfg.R, cfg.NC,
                              cfg.NB)
-    kind = params[:, MP_KIND].long()
     T = ticks.long()
     T5 = (T - stats[:, MS_FINISHED].long()).clamp(min=0)
-    sel = torch.full_like(kind, 2)
-    ab = torch.full_like(kind, 2)
-    for k, n in ((KIND_RR, 5), (KIND_DARP, 1 + 12 * B),
-                 (KIND_RDARP, 1 + R + 18 * B), (KIND_ELASTIC, 2 + 7 * B),
-                 (KIND_HIRA, 11 * B)):
-        sel[kind == k] = 2 + 4 * B + 1 + n
-    ab[kind == KIND_AB] = 14 * R
-    ab[kind == KIND_STAG] = 10 * R + 10
+    sel, ab = _scan_operations(cfg, params)
     per_tick = 3 + C * (K + 1) + 1 + 8 * C
     per_tick5 = (1 + (params[:, MP_LEVEL_AB] != 0).long() * (1 + 6 * R)
                  + B + B * (12 + 2 * S) + sel + ab + 1 + 2 * R + 2 * B
@@ -242,6 +276,69 @@ def closed_operations(cfg, params, stats, ticks) -> int:
     events = ((12 + 57) * served + 15 * stats[:, MS_REFPB].long()
               + (2 * NB + 4) * stats[:, MS_REFAB].long())
     return int((per_tick * T + per_tick5 * T5 + events).sum())
+
+
+def _scan_operations(cfg, params) -> tuple:
+    """Per-cell operations of phase 4 / C's policy scan and all-bank
+    start test (`refresh_decide`, shared by both kernels), as
+    `closed_operations` spells them out."""
+    B, R = cfg.B, cfg.R
+    kind = params[:, MP_KIND].long()
+    sel = torch.full_like(kind, 2)
+    ab = torch.full_like(kind, 2)
+    for k, n in ((KIND_RR, 5), (KIND_DARP, 1 + 12 * B),
+                 (KIND_RDARP, 1 + R + 18 * B), (KIND_ELASTIC, 2 + 7 * B),
+                 (KIND_HIRA, 11 * B)):
+        sel[kind == k] = 2 + 4 * B + 1 + n
+    ab[kind == KIND_AB] = 14 * R
+    ab[kind == KIND_STAG] = 10 * R + 10
+    return sel, ab
+
+
+def open_operations(cfg, params, stats, ticks) -> int:
+    """Integer operations `sweep_mega_open_kernel` performs for these
+    cells on this data, counted from its source (`csrc/
+    sweep_megakernel_open.cu` and the shared `sweep_tick.cuh`,
+    `sweep_score.cuh`) by the rules of `closed_operations` (one for each
+    compare, add/subtract, multiply, divide/modulo, logical or shift,
+    and select; none for loads, stores, address arithmetic or loop
+    counters; the cheapest arm where the outputs do not record a
+    branch, so the sum is a floor). `params`, `stats`, `ticks` are the
+    kernel's input rows and its two outputs.
+
+    Every tick a cell runs (B banks, S subarrays, R ranks, NC channels,
+    NB banks a rank):
+
+      loop                       3 (`served < n_tot`, `t < horizon`,
+                                 `t += 1`)
+      phase A                    2*B + 1 (per bank the FIFO test and the
+                                 queue depth; the watermark test)
+      phase B (`refresh_debt`)   1, and 1 + 6*R more for a level-'ab'
+                                 cell
+      phase C (`refresh_decide`) B*(12 + 2*S) + the policy's scan and
+                                 the all-bank start test (as in
+                                 `closed_operations`) + 1 + 2*R + 2*B
+      phase D                    1 + NC + B
+
+    and per event: 4 an arrived request (the FIFO test's second compare,
+    the write test, the count, the re-test) and 1 more an arrived write;
+    54 a served one (one candidate's eligibility 4, score 14,
+    hit/mid/best 4; `serve_bank` 30; `n_served` and `served` 2); 15 a
+    per-bank refresh, 2*NB + 4 an all-bank one. Per cell once: B for
+    `n_tot` and 3 + 2*(p99 + 1) for the histogram scan. Served requests
+    stand in for arrived ones (equal when the cell finished)."""
+    B, S, R, NC, NB = cfg.B, cfg.S, cfg.R, cfg.NC, cfg.NB
+    sel, ab = _scan_operations(cfg, params)
+    level_ab = (params[:, MP_LEVEL_AB] != 0).long()
+    per_tick = (3 + 2 * B + 1 + 1 + level_ab * (1 + 6 * R)
+                + B * (12 + 2 * S) + sel + ab + 1 + 2 * R + 2 * B
+                + 1 + NC + B)
+    writes = stats[:, MS_WRITES].long()
+    served = stats[:, MS_READS].long() + writes
+    events = ((4 + 54) * served + writes + 15 * stats[:, MS_REFPB].long()
+              + (2 * NB + 4) * stats[:, MS_REFAB].long()
+              + B + 3 + 2 * (stats[:, MS_P99].long() + 1))
+    return int((per_tick * ticks.long() + events).sum())
 
 
 # ------------------------------------------------------------- the wrapper
@@ -257,20 +354,49 @@ def _block_threads(n: int, device) -> int:
     return min(MAX_THREADS, 1 << (want - 1).bit_length())
 
 
-def _check(name, x, shape, device):
+def _check(who, name, x, shape, device):
     if not isinstance(x, torch.Tensor):
-        raise TypeError(f"mega_closed_cells: {name} must be a tensor")
+        raise TypeError(f"{who}: {name} must be a tensor")
     if x.device != device:
-        raise ValueError(f"mega_closed_cells: {name} is on {x.device}, "
-                         f"expected {device}")
+        raise ValueError(f"{who}: {name} is on {x.device}, expected "
+                         f"{device}")
     if x.dtype != torch.int32:
-        raise TypeError(f"mega_closed_cells: {name} must be int32, got "
-                        f"{x.dtype}")
+        raise TypeError(f"{who}: {name} must be int32, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"mega_closed_cells: {name} has shape "
-                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"mega_closed_cells: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def _check_cells(who, cfg, closed, params, scn_of_cell, cname, counts,
+                 streams, stream_shape):
+    """The checks both wrappers make before any launch: int32 contiguous
+    tensors on one device, of the shapes `cfg` gives, and a bank
+    hierarchy the kernels take. Returns the device."""
+    if not isinstance(params, torch.Tensor) or params.dim() != 2:
+        raise ValueError(f"{who}: params must be [n, MEGA_NPARAM]")
+    n, device = params.shape[0], params.device
+    if cfg.closed != closed:
+        raise ValueError(f"{who}: cfg is not a "
+                         f"{'closed' if closed else 'open'}-loop cfg")
+    _check(who, "params", params, (n, MEGA_NPARAM), device)
+    _check(who, "scn_of_cell", scn_of_cell, (n,), device)
+    if not isinstance(counts, torch.Tensor) or counts.dim() != 2:
+        raise ValueError(f"{who}: {cname} must be "
+                         f"[NS, {'C' if closed else 'B'}]")
+    NS = counts.shape[0]
+    _check(who, cname, counts, (NS, stream_shape[0]), device)
+    for k, v in streams.items():
+        _check(who, k, v, (NS,) + tuple(stream_shape), device)
+    if cfg.B != cfg.NC * cfg.NR * cfg.NB or cfg.R != cfg.NC * cfg.NR:
+        raise ValueError(f"{who}: inconsistent bank hierarchy")
+    if cfg.B > MAX_BANKS:
+        raise ValueError(f"{who}: {cfg.B} banks per cell, the kernels "
+                         f"take at most MAX_BANKS={MAX_BANKS}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {device}")
+    return device
 
 
 def mega_closed_cells(cfg, params, scn_of_cell, streams, nreq, *,
@@ -293,30 +419,16 @@ def mega_closed_cells(cfg, params, scn_of_cell, streams, nreq, *,
     launch raises; CPU tensors go through the plain version (which
     reports no per-cell tick counts)."""
     global LAUNCHES
-    if not isinstance(params, torch.Tensor) or params.dim() != 2:
-        raise ValueError("mega_closed_cells: params must be [n, "
-                         "MEGA_NPARAM]")
-    n, device = params.shape[0], params.device
-    if not cfg.closed:
-        raise ValueError("mega_closed_cells: cfg is not a closed-loop cfg")
-    _check("params", params, (n, MEGA_NPARAM), device)
-    _check("scn_of_cell", scn_of_cell, (n,), device)
-    _check("nreq", nreq, (nreq.shape[0], cfg.C), device)
-    NS = nreq.shape[0]
-    for k in _STREAMS:
-        _check(k, streams[k], (NS, cfg.C, cfg.N), device)
-    if cfg.B != cfg.NC * cfg.NR * cfg.NB or cfg.R != cfg.NC * cfg.NR:
-        raise ValueError("mega_closed_cells: inconsistent bank hierarchy")
-    if cfg.B > MAX_BANKS:
-        raise ValueError(f"mega_closed_cells: {cfg.B} banks per cell, the "
-                         f"kernel holds bank sets in {MAX_BANKS}-bit masks")
+    who = "mega_closed_cells"
+    if not isinstance(streams, dict) or set(streams) != set(_STREAMS):
+        raise ValueError(f"{who}: streams must hold {_STREAMS}")
+    device = _check_cells(who, cfg, True, params, scn_of_cell, "nreq",
+                          nreq, streams, (cfg.C, cfg.N))
     if cfg.LQ & (cfg.LQ - 1):
-        raise ValueError("mega_closed_cells: LQ must be a power of two")
-
+        raise ValueError(f"{who}: LQ must be a power of two")
+    n = params.shape[0]
     if device.type == "cpu":
         return _plain_closed_cells(cfg, params, scn_of_cell, streams, nreq)
-    if device.type != "cuda":
-        raise ValueError(f"mega_closed_cells: unsupported device {device}")
 
     from repro_torch.kernels import _build
     lib = _build.load()
@@ -348,12 +460,71 @@ def mega_closed_cells(cfg, params, scn_of_cell, streams, nreq, *,
     return stats, cf, ticks
 
 
+def mega_open_cells(cfg, params, scn_of_cell, streams, npb, *,
+                    threads=None):
+    """Run `n` open-loop cells to completion.
+
+    cfg         : `torchbody.TickCfg` of the grid (open)
+    params      : `[n, MEGA_NPARAM]` int32, MP_* columns, one row a cell
+    scn_of_cell : `[n]` int32, the cell's scenario index
+    streams     : dict of the four `[NS, B, L]` int32 per-scenario arrival
+                  FIFOs ``qa qr qs qw`` (arrival tick, row, subarray,
+                  write flag; `_PAD_ARRIVE` past the real entries)
+    npb         : `[NS, B]` int32 real entries per FIFO
+    threads     : cells per block; None picks by grid size
+                  (`_block_threads`)
+
+    Returns ``(stats [n, MEGA_NSTAT] int32, ticks [n] int32 or None)`` on
+    the inputs' device. CUDA tensors go through the kernel — a missing
+    compiler, a failed build or a refused launch raises; CPU tensors go
+    through the plain version (which reports no per-cell tick counts)."""
+    global OPEN_LAUNCHES
+    who = "mega_open_cells"
+    if not isinstance(streams, dict) or set(streams) != set(_OPEN_STREAMS):
+        raise ValueError(f"{who}: streams must hold {_OPEN_STREAMS}")
+    device = _check_cells(who, cfg, False, params, scn_of_cell, "npb", npb,
+                          streams, (cfg.B, cfg.L))
+    if cfg.L < 1:
+        raise ValueError(f"{who}: L must be at least 1")
+    n = params.shape[0]
+    if device.type == "cpu":
+        return _plain_open_cells(cfg, params, scn_of_cell, streams, npb)
+
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    words = int(lib.sweep_mega_open_scratch_words(cfg.B, cfg.S, cfg.NC,
+                                                  cfg.R))
+    i32 = dict(dtype=torch.int32, device=device)
+    stats = torch.empty((n, MEGA_NSTAT), **i32)
+    ticks = torch.empty((n,), **i32)
+    if n == 0:
+        return stats, ticks
+    scratch = torch.empty((words, n), **i32)
+    hist = torch.zeros((MAX_LAT_TICKS + 1, n), **i32)
+    with torch.cuda.device(device):
+        err = lib.sweep_mega_open_launch(
+            params.data_ptr(), scn_of_cell.data_ptr(),
+            *(streams[k].data_ptr() for k in _OPEN_STREAMS), npb.data_ptr(),
+            stats.data_ptr(), ticks.data_ptr(), scratch.data_ptr(),
+            hist.data_ptr(), n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC,
+            cfg.L, cfg.HI, cfg.LO,
+            int(threads) if threads else _block_threads(n, device),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sweep_mega_open_kernel launch failed: CUDA error {err} "
+            f"({_build.error_string(err)})")
+    OPEN_LAUNCHES += 1
+    return stats, ticks
+
+
 # ------------------------------------------------------------------ driver
 def host_inputs(grid):
     """The grid's packed inputs on the host, in kernel row order:
     ``(cfg, order, params [G, MEGA_NPARAM], scn_of_cell [G])`` as numpy
     int32 (`order` int64: kernel row -> canonical cell)."""
-    cfg = torchbody.closed_cfg(grid)
+    cfg = (torchbody.closed_cfg(grid) if grid.closed
+           else torchbody.open_cfg(grid))
     order = _layout(grid)
     params = np.ascontiguousarray(_pack_params(grid)[order], np.int32)
     scn = np.ascontiguousarray(grid.scn_of_cell[order], np.int32)
@@ -361,11 +532,11 @@ def host_inputs(grid):
 
 
 def upload(grid, params, scn, device, r0=0, r1=None):
-    """Kernel rows `r0:r1` as `mega_closed_cells` takes them, on
-    `device`: ``(params, scn_of_cell, streams, nreq)``. Rows are sorted
-    scenario-major, so the rows name one contiguous run of scenarios:
-    only those stream planes are sent, and `scn_of_cell` is re-based to
-    index them."""
+    """Kernel rows `r0:r1` as the mode's wrapper takes them, on
+    `device`: ``(params, scn_of_cell, streams, counts)`` — `counts` is
+    `nreq` closed, `npb` open. Rows are sorted scenario-major, so the
+    rows name one contiguous run of scenarios: only those stream planes
+    are sent, and `scn_of_cell` is re-based to index them."""
     r1 = params.shape[0] if r1 is None else r1
 
     def dev(a):
@@ -373,18 +544,22 @@ def upload(grid, params, scn, device, r0=0, r1=None):
             np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     s0, s1 = (int(scn[r0]), int(scn[r1 - 1]) + 1) if r1 > r0 else (0, 0)
-    streams = dict(sw=dev(grid.scn_write[s0:s1]),
-                   sb=dev(grid.scn_bank[s0:s1]),
-                   sr=dev(grid.scn_row[s0:s1]),
-                   ssub=dev(grid.scn_sub[s0:s1]),
-                   sth=dev(grid.scn_think[s0:s1]))
+    if grid.closed:
+        planes = dict(sw=grid.scn_write, sb=grid.scn_bank, sr=grid.scn_row,
+                      ssub=grid.scn_sub, sth=grid.scn_think)
+        counts = grid.scn_nreq
+    else:
+        planes = dict(qa=grid.scn_qa, qr=grid.scn_qr, qs=grid.scn_qs,
+                      qw=grid.scn_qw)
+        counts = grid.scn_npb
+    streams = {k: dev(v[s0:s1]) for k, v in planes.items()}
     return (dev(params[r0:r1]), dev(scn[r0:r1] - s0), streams,
-            dev(grid.scn_nreq[s0:s1]))
+            dev(counts[s0:s1]))
 
 
 def device_inputs(grid, device):
     """The whole grid on one device: ``(cfg, order, params, scn_of_cell,
-    streams, nreq)``."""
+    streams, counts)``."""
     cfg, order, params, scn = host_inputs(grid)
     return (cfg, order) + upload(grid, params, scn, device)
 
@@ -411,12 +586,14 @@ def _shares(G, n_shards):
 
 def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
     """Run every cell of `grid` (an `engine._Grid` built with
-    ``stack_streams=False``, closed mode) through the tick-loop kernel.
+    ``stack_streams=False``, either mode) through the mode's tick-loop
+    kernel.
 
     Returns a dict of canonical-cell-order `[G]` numpy arrays (keys
     ``reads writes hits misses refpb refab lat_sum maxlag last_done p99
-    finished``, ``core_finish`` `[G, C]`, and ``ticks`` — ticks run per
-    cell, None on the CPU) — exactly the inputs `engine._finalize` needs.
+    finished``, ``core_finish`` `[G, C]` for a closed grid and None for
+    an open one, and ``ticks`` — ticks run per cell, None on the CPU) —
+    exactly the inputs `engine._finalize` needs.
 
     `device=None` means the card; `chunk_cells` bounds the cells per
     launch (default: what `SCRATCH_BYTES` of scratch holds). `n_shards`
@@ -427,11 +604,8 @@ def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
     launch."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    if not grid.closed:
-        raise NotImplementedError(
-            "the open-loop tick-loop kernel is not ported yet: "
-            "backend='mega' runs mode='closed' grids only")
     devices = _shard_devices(_resolve_device(device, "mega"), n_shards)
+    run = mega_closed_cells if grid.closed else mega_open_cells
 
     cfg, order, params_h, scn_h = host_inputs(grid)
     G = grid.G
@@ -441,29 +615,26 @@ def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
     for d, (r0, r1) in zip(devices, _shares(G, len(devices))):
         if r1 == r0:
             continue
-        params, scn, streams, nreq = upload(grid, params_h, scn_h, d,
-                                            r0, r1)
+        params, scn, streams, counts = upload(grid, params_h, scn_h, d,
+                                              r0, r1)
         for c0 in range(0, r1 - r0, chunk):
-            parts.append(mega_closed_cells(
-                cfg, params[c0:c0 + chunk], scn[c0:c0 + chunk], streams,
-                nreq))
-    stats = torch.cat([p[0].cpu() for p in parts]).numpy()
-    cf = torch.cat([p[1].cpu() for p in parts]).numpy()
-    ticks = (None if parts[0][2] is None
-             else torch.cat([p[2].cpu() for p in parts]).numpy())
+            parts.append(run(cfg, params[c0:c0 + chunk],
+                             scn[c0:c0 + chunk], streams, counts))
 
-    res = np.zeros((G, MEGA_NSTAT), np.int32)
-    res[order] = stats
-    cf_g = np.zeros((G, cfg.C), np.int32)
-    cf_g[order] = cf
-    out = dict(reads=res[:, MS_READS], writes=res[:, MS_WRITES],
-               hits=res[:, MS_HITS], misses=res[:, MS_MISSES],
-               refpb=res[:, MS_REFPB], refab=res[:, MS_REFAB],
-               lat_sum=res[:, MS_LATSUM], maxlag=res[:, MS_MAXLAG],
-               last_done=res[:, MS_LASTDONE], p99=res[:, MS_P99],
-               finished=res[:, MS_FINISHED] != 0, core_finish=cf_g,
-               ticks=None)
-    if ticks is not None:
-        out["ticks"] = np.zeros(G, np.int32)
-        out["ticks"][order] = ticks
-    return out
+    def gather(i, width):
+        if parts[0][i] is None:
+            return None
+        rows = torch.cat([p[i].cpu() for p in parts]).numpy()
+        out = np.zeros((G,) + width, np.int32)
+        out[order] = rows
+        return out
+
+    res = gather(0, (MEGA_NSTAT,))
+    return dict(reads=res[:, MS_READS], writes=res[:, MS_WRITES],
+                hits=res[:, MS_HITS], misses=res[:, MS_MISSES],
+                refpb=res[:, MS_REFPB], refab=res[:, MS_REFAB],
+                lat_sum=res[:, MS_LATSUM], maxlag=res[:, MS_MAXLAG],
+                last_done=res[:, MS_LASTDONE], p99=res[:, MS_P99],
+                finished=res[:, MS_FINISHED] != 0,
+                core_finish=gather(1, (cfg.C,)) if grid.closed else None,
+                ticks=gather(len(parts[0]) - 1, ()))

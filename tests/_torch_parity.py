@@ -16,6 +16,13 @@ CONF_SCENARIOS = ("closed_mixed", "closed_read_heavy", "closed_write_heavy",
                   "closed_low_mlp")
 CONF_DENSITIES = (8, 16, 32)
 CONF_REQS, CONF_SEED = 96, 2
+#: open-loop scenario axis of the port's open parity grids
+OPEN_SCENARIOS = ("mixed", "read_heavy", "write_burst_draining",
+                  "bank_camping")
+#: one registered policy of each vectorized kind (ideal, all-bank,
+#: staggered, round-robin, DARP, rank-aware DARP, elastic, HiRA)
+ONE_PER_KIND = ("ideal", "ref_ab", "staggered_ab", "ref_pb", "darp",
+                "rank_aware_darp", "elastic", "hira")
 
 
 def spec_kwargs(name: str, policies) -> dict:
@@ -40,6 +47,33 @@ def spec_kwargs(name: str, policies) -> dict:
         return dict(policies=("ideal", "ref_ab", "darp", "dsarp"),
                     scenarios=("closed_mixed", "closed_read_heavy"),
                     densities=(8, 32), reqs=48, seed=11, mode="closed")
+    # open-loop counterparts (`mode` left at its default, "open")
+    if name == "open_kernels":
+        return dict(policies=("ideal", "ref_ab", "darp", "dsarp"),
+                    scenarios=("mixed", "read_heavy"),
+                    densities=(8, 32), reqs=48, seed=11)
+    if name == "open_conformance":
+        return dict(policies=tuple(policies), scenarios=OPEN_SCENARIOS,
+                    densities=CONF_DENSITIES, reqs=64, seed=CONF_SEED)
+    if name == "open_multirank":
+        return dict(policies=tuple(policies),
+                    scenarios=("mixed", "write_burst_draining"),
+                    densities=(32,), reqs=64, seed=7, n_ranks=2,
+                    n_channels=2)
+    if name in ("open_subarray1", "open_subarray4", "open_subarray8"):
+        return dict(policies=tuple(policies),
+                    scenarios=("subarray_conflict_adversarial",
+                               "row_buffer_friendly"),
+                    densities=(32,), reqs=64, seed=3,
+                    n_subarrays=int(name[-1]))
+    if name in ("wide_closed", "wide_open"):
+        # 128 global banks: DDR4's 16 banks a rank, 4 ranks, 2 channels
+        closed = name == "wide_closed"
+        return dict(policies=tuple(policies),
+                    scenarios=("closed_mixed",) if closed else ("mixed",),
+                    densities=(32,), reqs=64, seed=4,
+                    mode="closed" if closed else "open", n_banks=16,
+                    n_ranks=4, n_channels=2)
     raise KeyError(name)
 
 

@@ -16,7 +16,7 @@ from repro_torch.core.sweep import SweepSpec, sweep
 from repro_torch.kernels import sweep_arbiter as tarb
 from repro_torch.kernels import sweep_megakernel as mega
 
-from _torch_parity import assert_cells_equal, spec_kwargs
+from _torch_parity import ONE_PER_KIND, assert_cells_equal, spec_kwargs
 
 
 def _need_card():
@@ -38,13 +38,44 @@ def test_cuda_megakernel_equals_plain_version(grid):
 
 
 @pytest.mark.gpu
-def test_cuda_arbiter_equals_plain_version():
+@pytest.mark.parametrize("grid", ["open_conformance", "open_multirank",
+                                  "open_subarray4"])
+def test_cuda_open_megakernel_equals_plain_version(grid):
     _need_card()
-    spec = SweepSpec(**spec_kwargs("kernels", None))
+    spec = SweepSpec(**spec_kwargs(grid, tuple(list_policies())))
+    before = mega.OPEN_LAUNCHES
+    on_card = sweep(spec)                         # the default: mode "open"
+    assert mega.OPEN_LAUNCHES > before
+    assert_cells_equal(sweep(spec, "mega", device="cpu"), on_card, grid)
+    assert_cells_equal(sweep(spec, "batched"), on_card, grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["wide_closed", "wide_open"])
+def test_cuda_megakernels_take_128_bank_cells(grid):
+    """The wide instantiation of both megakernels (more than 64 banks)."""
+    _need_card()
+    spec = SweepSpec(**spec_kwargs(grid, ONE_PER_KIND))
+    before = mega.LAUNCHES + mega.OPEN_LAUNCHES
+    on_card = sweep(spec, "mega")
+    assert mega.LAUNCHES + mega.OPEN_LAUNCHES == before + 1
+    assert_cells_equal(sweep(spec, "mega", device="cpu"), on_card, grid)
+    assert_cells_equal(sweep(spec, "batched"), on_card, grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["kernels", "open_kernels"])
+def test_cuda_arbiter_equals_plain_version(grid):
+    _need_card()
+    spec = SweepSpec(**spec_kwargs(grid, None))
     before = tarb.LAUNCHES
     on_card = sweep(spec, "torch", arbiter="cuda")
     assert tarb.LAUNCHES > before
     assert_cells_equal(sweep(spec, "batched"), on_card, "arbiter=cuda")
+    before = tarb.LAUNCHES
+    host = sweep(spec, "batched", arbiter="cuda")
+    assert tarb.LAUNCHES > before
+    assert_cells_equal(on_card, host, "batched, arbiter=cuda")
 
 
 @pytest.mark.gpu

@@ -220,6 +220,7 @@ def test_mega_wrapper_rejects_bad_inputs(fault):
     elif fault == "stride":
         streams = dict(streams, sb=streams["sb"].transpose(1, 2))
     else:
-        cfg = dataclasses.replace(cfg, B=128, NB=128)
+        cfg = dataclasses.replace(cfg, B=2 * mega.MAX_BANKS,
+                                  NB=2 * mega.MAX_BANKS)
     with pytest.raises((TypeError, ValueError)):
         mega.mega_closed_cells(cfg, params, scn, streams, nreq)

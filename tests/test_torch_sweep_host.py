@@ -1,6 +1,7 @@
 """Port parity, sweep engine host side: the copied constant tables and
 the numpy `batched` / `scalar` closed-loop backends of `repro_torch`
-against the JAX package's. Tolerance: none (exact equality)."""
+against the JAX package's (their open-loop halves are held in
+`tests/test_torch_open.py`). Tolerance: none (exact equality)."""
 import dataclasses
 
 import numpy as np
@@ -89,13 +90,6 @@ def test_closed_demand_instance_on_the_scenario_axis():
         rd, name="closed_mixed#s3"),), **kw), "batched")
     b = sweep(SweepSpec(scenarios=(pd,), **kw), "batched")
     assert_cells_equal(a, b, "demand instance")
-
-
-def test_open_mode_is_not_ported_yet():
-    spec = SweepSpec(policies=("ideal",), scenarios=("mixed",),
-                     densities=(8,), reqs=32)
-    with pytest.raises(NotImplementedError, match="open"):
-        sweep(spec, "batched")
 
 
 def test_weighted_speedup_matches_reference():
