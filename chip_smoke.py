@@ -19,7 +19,15 @@ and prints one JSON object a line:
               the host over the conformance, multirank and subarray grids
               of its mode; both megakernels on 128-bank cells (16 banks x
               4 ranks x 2 channels, their wide instantiation) against
-              their plain versions on the same device inputs;
+              their plain versions on the same device inputs; the float
+              kernels C (paged attention), D (kv_quant), E (flash
+              attention) and F (Mamba2 SSD) against their plain versions
+              at small edge shapes (a zero-length sequence, -1 table
+              padding, GQA groups 1, 5 and 16, S=16 and 64, both input
+              types)
+              at the bars `FLASH_TOL`, `PAGED_TOL`, `SSD_TOL` (the
+              reference's in float32; one rounding of the output in
+              bfloat16) and kv_quant's (scales rtol 1e-4, int8 within 1);
   4. paper    the main path at the paper's grid: figure-3 policies x the
               closed figure scenarios x 3 densities, reqs=2000, seeds 1
               and 2, through `sweep(spec)` (default backend: the
@@ -53,17 +61,30 @@ and prints one JSON object a line:
               registered policy x 2384 seed-varied open traces x 3
               densities = 100128 cells (reqs=400), through `sweep(spec)`,
               its last 24 traces' 1008 cells held equal to `batched`
-              (path `open_ladder_mega`).
+              (path `open_ladder_mega`);
+  7. ops      the float-kernel entry point `repro_torch.kernels.ops` at
+              full model widths: Qwen2.5-14B decode - f32 K/V pages
+              [4104, 64, 8, 128] quantized by `ops.kv_quant` (D), 8
+              sequences of up to 32768 tokens attended by
+              `ops.refresh_paged_attention` (C), held against the plain
+              versions and `ops.paged_attention_serial` (path
+              `ops_paged_decode`); Qwen2.5-14B prefill, [40, 4096, 128]
+              causal in bf16 and f32 through `ops.flash_attention` (E),
+              and `ops.flash_attention_trainable`'s gradients at S=512
+              (path `ops_prefill_flash`); mamba2-130m's SSD, x [8, 4096,
+              24, 64] through `ops.mamba2_ssd` (F) (path `ops_ssd`).
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
-The three kernels' launch counters are set to 0 just before each of the
-eight paths and read just after it, and reported per path; a path that
-did not launch its kernel fails the run. Afterwards each kernel is timed
+The seven kernels' launch counters are set to 0 just before each of the
+eleven paths and read just after it, and reported per path; a path that
+did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
-version and its bound, and held against the plain version once more at
-that shape; the arbiter kernel is also timed at the paper path's
-[120, 8]. Those launches are not counted. The line before the last is
+version and its bound (and E beside `scaled_dot_product_attention`, C
+beside `ops.paged_attention_serial`); the megakernels are held against
+their plain versions once more at that shape; the arbiter kernel is also
+timed at the paper path's [120, 8]. Those launches are not counted. TF32
+is switched off, so the plain versions compute in full float32. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Any
 failing phase raises: the exit code is then non-zero and no result line
 is printed.
@@ -627,6 +648,367 @@ def time_open_megakernel(torch, spec):
                 io_bytes=nbytes)
 
 
+# ------------------------------------------------------------- phase 7
+# the float kernels (C paged attention, D kv_quant, E flash attention, F
+# Mamba2 SSD), through `repro_torch.kernels.ops`, at the widths of models
+# the repo supports: Qwen2.5-14B attention (src/repro/configs/
+# qwen2_5_14b.py: 40 query heads, 8 kv heads, head 128), the paged cache's
+# default page of 64 tokens (src/repro/kvcache/paged.py), and mamba2-130m
+# (src/repro/configs/mamba2_130m.py: d_inner 1536 / head 64 = 24 heads,
+# d_state 128, chunk 128).
+QWEN_H, QWEN_HKV, QWEN_D, PAGE = 40, 8, 128, 64
+DECODE_B, DECODE_MAXP = 8, 512            # 8 sequences of up to 32768 tokens
+DECODE_PAGES = DECODE_B * DECODE_MAXP + 8
+PREFILL_S, TRAIN_S = 4096, 512
+SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 4096, 24, 64, 128, 128
+BF16_TC_FLOPS = 989e12                   # dense tensor cores, bf16
+
+# Bars (atol, rtol) of each float kernel against its plain version on the
+# card. float32: the reference's own (tests/test_kernels.py). bfloat16:
+# kernel and plain version both compute in float32 and round the output
+# to bfloat16 once, so they may differ by one rounding of the output, at
+# most 2^-7 of its value: rtol 1e-2 admits that and no more, atol 1e-3
+# only matters near zero. The reference's 2e-2 would be about twice a
+# typical output at these lengths (a softmax mean over thousands of
+# tokens) and could not tell a wrong kernel from a right one.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1e-2)}
+PAGED_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (1e-3, 1e-2)}
+SSD_TOL = (5e-4, 2e-3)
+
+# The float kernels' edge shapes, checked in the kernels phase and by the
+# `gpu` tests (tests/test_torch_gpu.py reads these tables).
+KV_QUANT_SHAPES = ((3, 8, 2, 16), (6, 64, 8, 128), (2, 5, 1, 12))
+PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
+    (4, 10, 2, 16, 8, 4, (0, 9, 32, 1)),   # group 5, a zero length
+    (2, 8, 8, 32, 16, 2, (17, 32)),        # group 1
+    (3, 40, 8, 128, 64, 3, (130, 64, 1)),  # Qwen2.5-14B widths
+    (2, 64, 4, 128, 64, 2, (100, 0)))      # Qwen3-MoE: group 16
+FLASH_CASES = ((2, 64, 16), (1, 16, 8), (1, 256, 64), (2, 128, 128))
+SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),   # b, s, h, p,
+             (1, 256, 2, 64, 128, 128))                      # n, chunk
+
+
+def dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def close(torch, got, want, atol, rtol, what):
+    """Max abs difference of two tensors of one dtype and shape, held by
+    `torch.testing.assert_close` (in float32, non-finite values failing)
+    at `|got - want| <= atol + rtol |want|`; raises otherwise."""
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} vs {want.dtype}")
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, atol=atol, rtol=rtol,
+                               msg=lambda m: f"{what}: {m}")
+    return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def check_kv_quant(torch, pages, q8, sc, what):
+    """Kernel D's result `(q8, sc)` for `pages` against its plain version
+    at the reference's bars; returns (max int8 difference, exactly
+    equal)."""
+    from repro_torch.kernels import kv_quant as kq
+    q8r, scr = kq.kv_quant_torch(pages)
+    close(torch, sc, scr, 0.0, 1e-4, f"{what}: scales")
+    diff = int((q8.int() - q8r.int()).abs().max())
+    deq = q8.float() * sc[:, None, :, None]
+    bound = sc[:, None, :, None] * 0.51 + 1e-6
+    if diff > 1 or not bool(((deq - pages.float()).abs() <= bound).all()):
+        raise AssertionError(f"{what}: int8 differs by {diff} or the round "
+                             f"trip exceeds 0.51 scale")
+    return diff, bool(torch.equal(q8, q8r) and torch.equal(sc, scr))
+
+
+def kv_quant_input(torch, g, shape, dtype):
+    """Random pages of `shape` with an all-zero head and values on the
+    rounding boundaries, in `dtype`."""
+    x = torch.randn(shape, generator=g, device="cuda") * 3
+    x[0, :, 0] = 0.0                                    # an all-zero head
+    x[1, 0, 0, :4] = torch.tensor([63.5, -63.5, 0.5, 127.0])
+    return x.to(dtype)
+
+
+def paged_case(torch, np, b, h, hkv, d, t, maxp, lens, seed):
+    """Random int8 cache pages (quantized by the plain version), a page
+    table with -1 past each sequence's pages, lengths, q in float32."""
+    from repro_torch.kernels import kv_quant as kq
+    rs = np.random.RandomState(seed)
+    n_pages = b * maxp + 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k8, ks = kq.kv_quant_torch(torch.randn((n_pages, t, hkv, d),
+                                           generator=g, device="cuda"))
+    v8, vs = kq.kv_quant_torch(torch.randn((n_pages, t, hkv, d),
+                                           generator=g, device="cuda"))
+    table = rs.permutation(n_pages)[:b * maxp].reshape(b, maxp)
+    for bi, n in enumerate(lens):
+        table[bi, (n + t - 1) // t:] = -1
+    q = torch.randn((b, h, d), generator=g, device="cuda")
+    return (q, k8, v8, ks, vs,
+            torch.from_numpy(table.astype(np.int32)).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def check_float_kernels(torch, np):
+    """C, D, E, F against their plain versions on the card at small edge
+    shapes: ragged lengths, a zero-length sequence, -1 table padding, GQA
+    groups 1, 5 and 16, S=64 and 16 for flash, both input types."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import refresh_paged_attention as rpa
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    diff, exact = 0, True
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in KV_QUANT_SHAPES:
+            x = kv_quant_input(torch, g, shape, dtype)
+            d_, e_ = check_kv_quant(torch, x, *kq.kv_quant(x),
+                                    f"kv_quant {dtype} {shape}")
+            diff, exact = max(diff, d_), exact and e_
+    out["kv_quant"] = {"max_abs_err_int8": diff, "exact": exact}
+    errs = {}
+    for (b, h, hkv, d, t, maxp, lens) in PAGED_CASES:
+        q, *cache = paged_case(torch, np, b, h, hkv, d, t, maxp, lens,
+                               seed=b * 10 + h)
+        for dtype in (torch.float32, torch.bfloat16):
+            qd = q.to(dtype)
+            got = rpa.refresh_paged_attention(qd, *cache, page_size=t)
+            want = rpa.paged_attention_torch(qd, *cache, page_size=t)
+            key = f"paged {dtype} B{b} H{h} Hkv{hkv} D{d} T{t}"
+            errs[key] = close(torch, got, want,
+                              *PAGED_TOL[dtype_name(dtype)], key)
+            if any(n == 0 for n in lens) and bool(
+                    got[[i for i, n in enumerate(lens) if n == 0]].any()):
+                raise AssertionError(f"{key}: a zero-length sequence got "
+                                     f"non-zero output")
+    out["paged_attention"] = errs
+    errs = {}
+    for (bh, s, d) in FLASH_CASES:
+        q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
+                   for _ in range(3))
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+                got = fa.flash_attention(qd, kd, vd, causal=causal)
+                want = fa.flash_attention_torch(qd, kd, vd, causal=causal)
+                key = f"flash {dtype} BH{bh} S{s} D{d} causal={causal}"
+                errs[key] = close(torch, got, want,
+                                  *FLASH_TOL[dtype_name(dtype)], key)
+    out["flash_attention"] = errs
+    errs = {}
+    for (b, s, h, p, n, chunk) in SSD_CASES:
+        args = ssd_inputs(torch, g, b, s, h, p, n)
+        key = f"ssd B{b} S{s} H{h} P{p} N{n} chunk{chunk}"
+        errs[key] = close(torch, ssd.mamba2_ssd(*args, chunk=chunk),
+                          ssd.mamba2_ssd_torch(*args, chunk=chunk),
+                          *SSD_TOL, key)
+    out["mamba2_ssd"] = errs
+    return out
+
+
+def ssd_inputs(torch, g, b, s, h, p, n):
+    """x, dt (post-softplus, > 0), A (< 0), B, C as the reference test
+    draws them."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    return (rnd(b, s, h, p), rnd(b, s, h).abs() * 0.1 + 0.01,
+            -rnd(h).abs() - 0.1, rnd(b, s, n), rnd(b, s, n))
+
+
+def paged_decode_path(torch, np):
+    """Qwen2.5-14B decode over a paged int8 cache: f32 K/V pages
+    [4104, 64, 8, 128] quantized by `ops.kv_quant` (D), then 8 sequences
+    of up to 32768 tokens (one full, one ragged, -1 past each sequence's
+    pages) attended by `ops.refresh_paged_attention` (C), q in float32
+    and in bfloat16. Held against the plain versions and against
+    `ops.paged_attention_serial`."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import refresh_paged_attention as rpa
+    rs = np.random.RandomState(0)
+    full = DECODE_MAXP * PAGE
+    lens = rs.randint(1, full + 1, DECODE_B)
+    lens[0], lens[1] = full, full - 37                 # full, and ragged
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (DECODE_PAGES, PAGE, QWEN_HKV, QWEN_D)
+    kp = torch.randn(shape, generator=g, device="cuda")
+    vp = torch.randn(shape, generator=g, device="cuda")
+    table = rs.permutation(DECODE_PAGES)[:DECODE_B * DECODE_MAXP].reshape(
+        DECODE_B, DECODE_MAXP)
+    for bi, n in enumerate(lens):
+        table[bi, (n + PAGE - 1) // PAGE:] = -1
+    table = torch.from_numpy(table.astype(np.int32)).cuda()
+    seq_lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    q = torch.randn((DECODE_B, QWEN_H, QWEN_D), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k8, ks = ops.kv_quant(kp)
+    v8, vs = ops.kv_quant(vp)
+    outs = {dt: ops.refresh_paged_attention(q.to(dt), k8, v8, ks, vs, table,
+                                            seq_lens, page_size=PAGE)
+            for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    (kd, ke), (vd, ve) = (check_kv_quant(torch, *a, f"decode kv_quant {n}")
+                          for n, a in (("K", (kp, k8, ks)), ("V", (vp, v8, vs))))
+    kq_diff, kq_exact = max(kd, vd), ke and ve
+    cache = (k8, v8, ks, vs, table, seq_lens)
+    errs = {}
+    for dt, got in outs.items():
+        want = rpa.paged_attention_torch(q.to(dt), *cache, page_size=PAGE)
+        errs[str(dt)] = close(torch, got, want, *PAGED_TOL[dtype_name(dt)],
+                              f"decode paged attention {dt}")
+    serial = ops.paged_attention_serial(q, *cache, page_size=PAGE)
+    serial_err = close(torch, outs[torch.float32], serial, 2e-2, 2e-2,
+                       "decode: fused vs paged_attention_serial")
+    valid_pages = int(((seq_lens.long() + PAGE - 1) // PAGE).sum())
+    return (kp, q, cache, valid_pages), dict(
+        phase="ops_paged_decode", model="Qwen2.5-14B decode",
+        pages=list(shape), seq_lens=lens.tolist(), max_pages=DECODE_MAXP,
+        valid_pages=valid_pages,
+        int8_cache_bytes=2 * DECODE_PAGES * PAGE * QWEN_HKV * QWEN_D,
+        kv_quant_max_abs_err_int8=kq_diff, kv_quant_exact=kq_exact,
+        max_abs_err=errs, vs_serial_max_abs_err=serial_err,
+        seconds=round(secs, 4))
+
+
+def prefill_flash_path(torch, np):
+    """Qwen2.5-14B prefill of one 4096-token prompt: q/k/v [40, 4096, 128]
+    (kv GQA-expanded), causal, through `ops.flash_attention` (E) in
+    bfloat16 and float32; then one forward and backward of
+    `ops.flash_attention_trainable` at S=512, its gradients held against
+    autograd through the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = [torch.randn((QWEN_H, PREFILL_S, QWEN_D), generator=g,
+                       device="cuda") for _ in range(3)]
+    errs, secs = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        args = [x.to(dt) for x in qkv]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ops.flash_attention(*args, causal=True)
+        torch.cuda.synchronize()
+        secs[str(dt)] = round(time.perf_counter() - t0, 4)
+        want = fa.flash_attention_torch(*args, causal=True)
+        errs[str(dt)] = close(torch, got, want, *FLASH_TOL[dtype_name(dt)],
+                              f"prefill flash {dt}")
+        del got, want
+    small = [x[:, :TRAIN_S].contiguous() for x in qkv]
+    kern = [x.clone().requires_grad_() for x in small]
+    (ops.flash_attention_trainable(*kern, True) ** 2).sum().backward()
+    plain = [x.clone().requires_grad_() for x in small]
+    (fa.flash_attention_torch(*plain, causal=True) ** 2).sum().backward()
+    grad_err = max(close(torch, a.grad, b.grad, 1e-4, 1e-4,
+                         f"trainable flash gradient {i}")
+                   for i, (a, b) in enumerate(zip(kern, plain)))
+    return qkv, dict(
+        phase="ops_prefill_flash", model="Qwen2.5-14B prefill",
+        shape=[QWEN_H, PREFILL_S, QWEN_D], causal=True, max_abs_err=errs,
+        seconds=secs, trainable_shape=[QWEN_H, TRAIN_S, QWEN_D],
+        trainable_grad_max_abs_err=grad_err)
+
+
+def ssd_path(torch, np):
+    """mamba2-130m's SSD scan over a batch of 8 sequences of 4096 tokens:
+    x [8, 4096, 24, 64], B/C [8, 4096, 128], chunk 128, through
+    `ops.mamba2_ssd` (F), held against the plain version."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(2)
+    args = ssd_inputs(torch, g, SSD_B, SSD_S, SSD_H, SSD_P, SSD_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ops.mamba2_ssd(*args, chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err = close(torch, y, ssd.mamba2_ssd_torch(*args, chunk=SSD_CHUNK),
+                *SSD_TOL, "ssd at mamba2-130m widths")
+    return args, dict(phase="ops_ssd", model="mamba2-130m",
+                      x=[SSD_B, SSD_S, SSD_H, SSD_P], d_state=SSD_N,
+                      chunk=SSD_CHUNK, max_abs_err=err,
+                      seconds=round(secs, 4))
+
+
+def bound(nbytes, ops, peak):
+    """(bound ms, what bounds it) for `nbytes` moved and `ops` done at
+    `peak` operations a second."""
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops
+                                       else "operations")
+
+
+def time_float_kernels(torch, dec, qkv, ssd_args):
+    """C, D, E, F at their paths' shapes (CUDA events), beside their plain
+    versions, their bounds and, for E, `scaled_dot_product_attention` -
+    the one PyTorch call that computes the same function (timed here,
+    never called by the port). C also reports `paged_attention_serial`."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import refresh_paged_attention as rpa
+    out = {}
+    kp, q, cache, valid_pages = dec
+    # f32 pages read once, int8 pages and f32 scales written once
+    nbytes = 5 * kp.numel() + 4 * kp.shape[0] * kp.shape[2]
+    ms, b_by = bound(nbytes, 0, 1.0)
+    out["kv_quant"] = dict(
+        shape=list(kp.shape), dtype="float32",
+        ms=time_cuda(torch, lambda i: kq.kv_quant(kp), 20),
+        plain_ms=time_cuda(torch, lambda i: kq.kv_quant_torch(kp), 5),
+        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+    # the int8 K and V of each sequence's first seq_len rows, the valid
+    # pages' scales and table entries, and the lengths read once; q read
+    # and the output written once
+    rows = int(cache[-1].long().sum()) * QWEN_HKV * QWEN_D
+    nbytes = (2 * rows + 2 * 4 * valid_pages * QWEN_HKV + 4 * valid_pages
+              + 4 * DECODE_B + 2 * 4 * q.numel())
+    ms, b_by = bound(nbytes, 0, 1.0)
+    out["paged_attention"] = dict(
+        q=list(q.shape), valid_pages=valid_pages, dtype="float32",
+        ms=time_cuda(torch, lambda i: rpa.refresh_paged_attention(
+            q, *cache, page_size=PAGE), 20),
+        plain_ms=time_cuda(torch, lambda i: rpa.paged_attention_torch(
+            q, *cache, page_size=PAGE), 5),
+        serial_ms=time_cuda(torch, lambda i: ops.paged_attention_serial(
+            q, *cache, page_size=PAGE), 5),
+        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+    fl = fa.operations(QWEN_H, PREFILL_S, PREFILL_S, QWEN_D, True)
+    for dt, peak in ((torch.bfloat16, BF16_TC_FLOPS),
+                     (torch.float32, FP32_FLOPS)):
+        a = [x.to(dt) for x in qkv]
+        # q, k, v read once and the output written once
+        ms, b_by = bound(4 * a[0].numel() * a[0].element_size(), fl, peak)
+        out[f"flash_attention_{dtype_name(dt)}"] = dict(
+            shape=list(a[0].shape), causal=True, operations=fl,
+            ms=time_cuda(torch, lambda i: fa.flash_attention(
+                *a, causal=True), 5),
+            plain_ms=time_cuda(torch, lambda i: fa.flash_attention_torch(
+                *a, causal=True), 3),
+            # [1, H, S, D]: the layout SDPA's fused backends take
+            library_ms=time_cuda(torch, lambda i:
+                                 F.scaled_dot_product_attention(
+                                     *[x[None] for x in a], is_causal=True),
+                                 10),
+            bound_ms=ms, bound_by=b_by)
+    b, s, h, p = ssd_args[0].shape
+    fl = ssd.operations(b, s, h, p, SSD_N, SSD_CHUNK)
+    nbytes = 4 * (2 * ssd_args[0].numel() + ssd_args[1].numel() + h
+                  + 2 * ssd_args[3].numel())
+    ms, b_by = bound(nbytes, fl, FP32_FLOPS)
+    out["mamba2_ssd"] = dict(
+        x=[b, s, h, p], operations=fl,
+        ms=time_cuda(torch, lambda i: ssd.mamba2_ssd(*ssd_args,
+                                                     chunk=SSD_CHUNK), 5),
+        plain_ms=time_cuda(torch, lambda i: ssd.mamba2_ssd_torch(
+            *ssd_args, chunk=SSD_CHUNK), 3),
+        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -645,8 +1027,15 @@ def main() -> int:
                                                     make_trace)
     from repro_torch.core.sweep import SweepSpec, sweep
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import refresh_paged_attention as rpa
     from repro_torch.kernels import sweep_arbiter as arb
     from repro_torch.kernels import sweep_megakernel as mega
+    # the plain versions are held in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     # 1. card
@@ -673,24 +1062,35 @@ def main() -> int:
     open_grids = check_megakernel(sweep,
                                   open_conformance_specs(SweepSpec, policies))
     wide = check_wide(torch, sweep, SweepSpec)
+    flt = check_float_kernels(torch, np)
     emit({"phase": "kernels", "arbiter": {
         "G": ARBITER_G, "B": ARBITER_B, "forms": ["closed", "open"],
         "max_abs_err": arb_err}, "megakernel": grids,
         "open_megakernel": open_grids, "wide_128_banks": wide,
-        "tolerance": 0})
+        "tolerance": 0, "float_kernels": flt, "float_tolerances": {
+            "flash": FLASH_TOL, "paged_attention": PAGED_TOL,
+            "mamba2_ssd": SSD_TOL, "kv_quant": "scales rtol 1e-4, int8 "
+            "within 1, |x - q s| <= 0.51 s"}})
 
-    # 4 - 6. the main paths, each with every launch counter from zero
+    # 4 - 7. the main paths, each with every launch counter from zero
     paths = {}
+    counters = {"mega": (mega, "LAUNCHES"),
+                "mega_open": (mega, "OPEN_LAUNCHES"),
+                "arbiter": (arb, "LAUNCHES"), "kv_quant": (kq, "LAUNCHES"),
+                "paged_attention": (rpa, "LAUNCHES"),
+                "flash_attention": (fa, "LAUNCHES"),
+                "mamba2_ssd": (ssd, "LAUNCHES")}
 
     def drive(label, expects, fn, *args):
-        arb.LAUNCHES = mega.LAUNCHES = mega.OPEN_LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         out = fn(*args)
-        paths[label] = {"mega": mega.LAUNCHES,
-                        "mega_open": mega.OPEN_LAUNCHES,
-                        "arbiter": arb.LAUNCHES}
-        if paths[label][expects] <= 0:
-            raise AssertionError(f"path {label} never launched the "
-                                 f"{expects} kernel")
+        paths[label] = {k: getattr(mod, attr)
+                        for k, (mod, attr) in counters.items()}
+        for name in expects.split("+"):
+            if paths[label][name] <= 0:
+                raise AssertionError(f"path {label} never launched the "
+                                     f"{name} kernel")
         return out
 
     (paper_spec, paper_res, _), paper = drive(
@@ -720,8 +1120,15 @@ def main() -> int:
                                  open_ladder_phase, sweep, SweepSpec,
                                  make_trace, policies)
     emit(dict(ol, launches=paths["open_ladder_mega"]))
-    by_path = {k: {p: n[k] for p, n in paths.items()}
-               for k in ("mega", "mega_open", "arbiter")}
+    dec_in, dec = drive("ops_paged_decode", "kv_quant+paged_attention",
+                        paged_decode_path, torch, np)
+    emit(dict(dec, launches=paths["ops_paged_decode"]))
+    qkv, pre = drive("ops_prefill_flash", "flash_attention",
+                     prefill_flash_path, torch, np)
+    emit(dict(pre, launches=paths["ops_prefill_flash"]))
+    ssd_args, sp = drive("ops_ssd", "mamba2_ssd", ssd_path, torch, np)
+    emit(dict(sp, launches=paths["ops_ssd"]))
+    by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)
     ta = time_arbiter(torch, np, ARBITER_G)
@@ -729,9 +1136,11 @@ def main() -> int:
                             * len(CLOSED_FIG_SCENARIOS) * len(DENSITIES))
     tm = time_megakernel(torch, full_spec)
     to = time_open_megakernel(torch, ladder_spec_open)
+    tf = time_float_kernels(torch, dec_in, qkv, ssd_args)
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
-          "megakernel": tm, "open_megakernel": to,
+          "megakernel": tm, "open_megakernel": to, **tf,
           "seconds_total": round(time.perf_counter() - t_start, 1)})
+    fl_bf, fl_32 = tf["flash_attention_bfloat16"], tf["flash_attention_float32"]
     emit({"kernels": [
         {"name": "sweep_mega_closed_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sweep_megakernel.cu",
@@ -764,7 +1173,68 @@ def main() -> int:
          "max_abs_err": arb_err,
          "ms": ta["ms"], "plain_ms": ta["plain_ms"],
          "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
-         "library_ms": None}]})
+         "library_ms": None},
+        {"name": "paged_attention_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/refresh_paged_attention.cu",
+         "replaces": "src/repro/kernels/refresh_paged_attention.py:117",
+         "launches": sum(by_path["paged_attention"].values()),
+         "launches_by_path": by_path["paged_attention"],
+         "timed_at": f"q {tf['paged_attention']['q']} float32 over "
+                     f"{tf['paged_attention']['valid_pages']} valid int8 "
+                     f"pages (path ops_paged_decode)",
+         "max_abs_err": dec["max_abs_err"]["torch.float32"],
+         "ms": tf["paged_attention"]["ms"],
+         "plain_ms": tf["paged_attention"]["plain_ms"],
+         "serial_ms": tf["paged_attention"]["serial_ms"],
+         "bound_ms": tf["paged_attention"]["bound_ms"],
+         "bound_by": tf["paged_attention"]["bound_by"],
+         "library_ms": None,
+         "library_note": "no PyTorch call attends over an int8 paged cache; "
+                         "serial_ms is ops.paged_attention_serial"},
+        {"name": "kv_quant_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/kv_quant.cu",
+         "replaces": "src/repro/kernels/kv_quant.py:29",
+         "launches": sum(by_path["kv_quant"].values()),
+         "launches_by_path": by_path["kv_quant"],
+         "timed_at": f"pages {tf['kv_quant']['shape']} float32 (path "
+                     f"ops_paged_decode)",
+         "max_abs_err": dec["kv_quant_max_abs_err_int8"],
+         "exact": dec["kv_quant_exact"],
+         "ms": tf["kv_quant"]["ms"], "plain_ms": tf["kv_quant"]["plain_ms"],
+         "bound_ms": tf["kv_quant"]["bound_ms"],
+         "bound_by": tf["kv_quant"]["bound_by"], "library_ms": None,
+         "library_note": "no PyTorch call quantizes with a scale per "
+                         "(page, head)"},
+        {"name": "flash_attention_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:80",
+         "launches": sum(by_path["flash_attention"].values()),
+         "launches_by_path": by_path["flash_attention"],
+         "timed_at": f"{fl_bf['shape']} bfloat16, causal (path "
+                     f"ops_prefill_flash); float32 in the f32_* keys",
+         "max_abs_err": pre["max_abs_err"]["torch.bfloat16"],
+         "ms": fl_bf["ms"], "plain_ms": fl_bf["plain_ms"],
+         "bound_ms": fl_bf["bound_ms"], "bound_by": fl_bf["bound_by"],
+         "library_ms": fl_bf["library_ms"],
+         "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                         "(is_causal=True)",
+         "f32_max_abs_err": pre["max_abs_err"]["torch.float32"],
+         "f32_ms": fl_32["ms"], "f32_plain_ms": fl_32["plain_ms"],
+         "f32_bound_ms": fl_32["bound_ms"],
+         "f32_library_ms": fl_32["library_ms"]},
+        {"name": "mamba2_ssd_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+         "replaces": "src/repro/kernels/mamba2_ssd.py:72",
+         "launches": sum(by_path["mamba2_ssd"].values()),
+         "launches_by_path": by_path["mamba2_ssd"],
+         "timed_at": f"x {tf['mamba2_ssd']['x']} float32, chunk "
+                     f"{SSD_CHUNK} (path ops_ssd)",
+         "max_abs_err": sp["max_abs_err"],
+         "ms": tf["mamba2_ssd"]["ms"],
+         "plain_ms": tf["mamba2_ssd"]["plain_ms"],
+         "bound_ms": tf["mamba2_ssd"]["bound_ms"],
+         "bound_by": tf["mamba2_ssd"]["bound_by"], "library_ms": None,
+         "library_note": "PyTorch has no SSD scan"}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -11,7 +11,7 @@ header and the flags, so an unchanged tree reuses `build/` and any edit
 rebuilds. Each source is compiled to an object by its own `nvcc` process,
 all started together, and one link step joins them.
 
-Constants the kernels share with the Python side (`core/sweep/fields.py`
+Constants the sweep kernels share with the Python side (`core/sweep/fields.py`
 score bits and `MP_*`/`MS_*` column tables, `KIND_*` policy kinds, the
 histogram width, the never-arrives sentinel and the widest cell the
 megakernels take) are written into
@@ -20,6 +20,10 @@ sources never spell them as literals.
 
 The build directory is `build/repro_torch` under the repository root;
 nothing else outside the package is written.
+
+`check_tensor` and `launch` are what every kernel wrapper calls: the
+first before it hands a tensor's pointer to C, the second to call the C
+launch function and raise on the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -109,6 +113,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sweep_mega_open_scratch_words.restype = ctypes.c_longlong
     lib.sweep_error_string.argtypes = [i]
     lib.sweep_error_string.restype = ctypes.c_char_p
+    # the float kernels: one entry point per input dtype
+    for dt in ("f32", "bf16"):
+        getattr(lib, f"kv_quant_{dt}_launch").argtypes = [p] * 3 + [i] * 4 \
+            + [p]
+        getattr(lib, f"paged_attention_{dt}_launch").argtypes = \
+            [p] * 8 + [i] * 6 + [p]
+        getattr(lib, f"flash_attention_{dt}_launch").argtypes = \
+            [p] * 4 + [i] * 7 + [p]
+    lib.mamba2_ssd_f32_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+    for name in ("kv_quant_f32", "kv_quant_bf16", "paged_attention_f32",
+                 "paged_attention_bf16", "flash_attention_f32",
+                 "flash_attention_bf16", "mamba2_ssd_f32"):
+        getattr(lib, f"{name}_launch").restype = i
 
 
 def load() -> ctypes.CDLL:
@@ -130,7 +147,7 @@ def load() -> ctypes.CDLL:
     h.update(" ".join(NVCC_FLAGS).encode())
     tag = h.hexdigest()[:16]
     out = build_dir() / tag
-    so = out / "libsweep_kernels.so"
+    so = out / "librepro_torch_kernels.so"
     t0 = time.perf_counter()
     log, reused = "", so.is_file()
     if not reused:
@@ -141,7 +158,7 @@ def load() -> ctypes.CDLL:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(out), "-I", str(CSRC),
                          "-c", str(s), "-o", str(o)]
                         for s, o in zip(sources, objs)])
-        tmp = out / f"libsweep_kernels.{os.getpid()}.so"
+        tmp = out / f"librepro_torch_kernels.{os.getpid()}.so"
         log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                           *map(str, objs)]])
         os.replace(tmp, so)
@@ -156,3 +173,39 @@ def load() -> ctypes.CDLL:
 def error_string(err: int) -> str:
     """`cudaGetErrorString` for a code returned by a launch function."""
     return load().sweep_error_string(int(err)).decode()
+
+
+def launch(name: str, *args) -> None:
+    """Call the C launch function `name` (pointers and the stream as
+    ints) and raise with CUDA's message if it returns an error: a launch
+    the device refuses never runs, and a later synchronize does not
+    report it."""
+    err = getattr(load(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err} "
+                           f"({error_string(err)})")
+
+
+def check_tensor(fn: str, name: str, x, *, dtypes, ndim: int,
+                 device=None) -> None:
+    """Raise unless `x` is a contiguous tensor of one of `dtypes` with
+    `ndim` dimensions (on `device`, when given; on a card, 16-byte
+    aligned): what a kernel wrapper checks before it hands pointers to a
+    launch function."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{fn}: {name} must be a tensor")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{fn}: {name} has dtype {x.dtype}, expected one "
+                        f"of {', '.join(map(str, dtypes))}")
+    if x.dim() != ndim:
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {ndim} dimensions")
+    if device is not None and x.device != device:
+        raise ValueError(f"{fn}: {name} is on {x.device}, expected "
+                         f"{device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError(f"{fn}: {name} must start on a 16-byte boundary "
+                         f"(the kernels load 4 elements at a time)")

@@ -1,0 +1,109 @@
+"""Mamba2 SSD (state-space duality) chunked forward as a CUDA kernel
+(kernel F).
+
+Replaces the TPU kernel `_ssd_kernel` of the JAX package
+(`repro/kernels/mamba2_ssd.py`): for each (batch, head), walking its
+chunks of length L in order with the state `h [P, N]` carried from one
+to the next,
+
+    y   = (C·Bᵀ ∘ exp(cum_i − cum_j) ∘ [j ≤ i]) · (dt·x) + exp(cum) ∘ (C·hᵀ)
+    h  <- h·exp(total) + Σ_l exp(total − cum_l) · (dt·x)_l ⊗ B_l
+
+with `cum` the within-chunk cumulative sum of `dt·A[head]` and `total`
+its last value; B and C are shared by the heads (one group). No D
+residual, no gating.
+
+Beside the kernel, as beside every kernel of this package:
+
+  * the plain PyTorch version is the oracle `ref.mamba2_ssd`
+    (`models.layers.ssd_chunked` with a zero residual);
+  * `mamba2_ssd` is the wrapper around the hand-written kernel
+    `mamba2_ssd_kernel` (`csrc/mamba2_ssd.cu`). It takes the plain
+    version only for tensors that lie on the CPU; for CUDA tensors it
+    launches the kernel or raises;
+  * `LAUNCHES` is a plain integer, incremented where the kernel is
+    launched and nowhere else.
+
+What bounds it on an H100: operations. At mamba2-130m widths (L=128,
+P=64, N=128) a (batch, head) chunk needs ~7.4 M floating-point
+operations (`operations`) against 32 KB of x in and 32 KB of y out, B
+and C being shared by the heads: ~103 operations a byte of the call's
+traffic.
+Blocks run in no order, so the sequential chunk axis becomes a loop
+inside one block: a block owns one (batch, head) and keeps the chunk's
+B, C and dt·x and the state in shared memory (dynamic shared memory,
+222,720 bytes at those widths, set with `cudaFuncSetAttribute` and
+checked). The decay
+`exp(cum_i − cum_j)` is computed only where j ≤ i: above the diagonal it
+overflows (cum falls along the chunk), and `inf · 0` would be NaN.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+#: number of kernel launches made by `mamba2_ssd`
+LAUNCHES = 0
+
+#: the largest chunk, head width and state width the kernel takes
+MAX_L, MAX_P, MAX_N = 128, 64, 128
+
+mamba2_ssd_torch = ref.mamba2_ssd
+
+
+def operations(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Floating-point operations the function needs (2 a multiply-add):
+    per chunk, C·Bᵀ and the weighted dt·x over the L(L+1)/2 pairs j ≤ i
+    (the kernel's tiles also compute some j > i and discard them), then
+    C·hᵀ and the state update, L·P·N each."""
+    l = min(chunk, s)
+    per_chunk = l * (l + 1) // 2 * (n + p) + 2 * l * p * n
+    return 2 * b * h * (s // l) * per_chunk
+
+
+def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int = 128):
+    """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); A: [H] (<0);
+    B_in/C_in: [B,S,N]; all float32, contiguous, on one device. Returns
+    y [B,S,H,P]. `min(chunk, S)` must divide S; on the card it is at
+    most `MAX_L`, with P <= `MAX_P` and N <= `MAX_N`, both multiples of
+    4."""
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    fn = "mamba2_ssd"
+    f32 = (torch.float32,)
+    _build.check_tensor(fn, "x", x, dtypes=f32, ndim=4)
+    for name, t, nd in (("dt", dt, 3), ("A", A, 1), ("B_in", B_in, 3),
+                        ("C_in", C_in, 3)):
+        _build.check_tensor(fn, name, t, dtypes=f32, ndim=nd,
+                            device=x.device)
+    b, s, h, p = x.shape
+    n = B_in.shape[-1]
+    if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
+            or tuple(B_in.shape) != (b, s, n)
+            or tuple(C_in.shape) != (b, s, n)):
+        raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B_in.shape)}, C {tuple(C_in.shape)} do "
+                         f"not fit")
+    l = min(chunk, s)
+    if s % l:
+        raise ValueError(f"{fn}: chunk {l} does not divide S={s}")
+    if x.device.type == "cpu":
+        return mamba2_ssd_torch(x, dt, A, B_in, C_in, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {x.device}")
+    if l > MAX_L or p > MAX_P or n > MAX_N or p % 4 or n % 4:
+        raise ValueError(f"{fn}: the kernel takes chunk <= {MAX_L}, P <= "
+                         f"{MAX_P} and N <= {MAX_N} (P, N multiples of 4); "
+                         f"got chunk={l}, P={p}, N={n}")
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        _build.launch("mamba2_ssd_f32_launch", x.data_ptr(), dt.data_ptr(),
+                      A.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
+                      y.data_ptr(), b, s, h, p, n, l,
+                      torch.cuda.current_stream().cuda_stream)
+    LAUNCHES += 1
+    return y

@@ -1,6 +1,8 @@
-"""Card-only tests of the port's CUDA kernels (marker `gpu`): each kernel
-against its plain PyTorch version and the numpy `batched` backend, exact.
-They import nothing of JAX, so they run on a machine that has only the
+"""Card-only tests of the port's CUDA kernels (marker `gpu`): each sweep
+kernel against its plain PyTorch version and the numpy `batched`
+backend, exact; each float kernel (kv_quant, paged attention, flash
+attention, Mamba2 SSD) against its plain version at the reference's
+bars, with TF32 off. They import nothing of JAX, so they run on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src:tests python -m pytest -q -m gpu --noconftest \
@@ -8,6 +10,10 @@ port's dependencies:
 
 Without a card every test here skips (decided inside the test, never at
 import)."""
+import pathlib
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +23,9 @@ from repro_torch.kernels import sweep_arbiter as tarb
 from repro_torch.kernels import sweep_megakernel as mega
 
 from _torch_parity import ONE_PER_KIND, assert_cells_equal, spec_kwargs
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (the repo root's device check)
 
 
 def _need_card():
@@ -89,3 +98,73 @@ def test_cuda_megakernel_shards_over_cards(n_shards):
     sharded = sweep(spec, "mega", n_shards=n_shards)
     assert mega.LAUNCHES == before + n_shards
     assert_cells_equal(sweep(spec, "mega"), sharded, f"{n_shards} shards")
+
+
+# ------------------------------------------------------------ float kernels
+# The edge cases, the bars and the input makers are `chip_smoke.py`'s, so
+# the device check and these tests hold the kernels to one table.
+def _gpu_float_setup():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", cs.KV_QUANT_SHAPES)
+def test_cuda_kv_quant_equals_plain_version(dtype, shape):
+    from repro_torch.kernels import kv_quant as kq
+    pages = cs.kv_quant_input(torch, _gpu_float_setup(), shape, dtype)
+    before = kq.LAUNCHES
+    q8, sc = kq.kv_quant(pages)
+    assert kq.LAUNCHES == before + 1
+    cs.check_kv_quant(torch, pages, q8, sc, f"kv_quant {shape}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,d,t,maxp,lens", cs.PAGED_CASES)
+def test_cuda_paged_attention_equals_plain_version(dtype, b, h, hkv, d, t,
+                                                   maxp, lens):
+    from repro_torch.kernels import refresh_paged_attention as rpa
+    _gpu_float_setup()
+    q, *cache = cs.paged_case(torch, np, b, h, hkv, d, t, maxp, lens,
+                              seed=b * 10 + h)
+    q = q.to(dtype)
+    before = rpa.LAUNCHES
+    got = rpa.refresh_paged_attention(q, *cache, page_size=t)
+    assert rpa.LAUNCHES == before + 1
+    cs.close(torch, got, rpa.paged_attention_torch(q, *cache, page_size=t),
+             *cs.PAGED_TOL[cs.dtype_name(dtype)], "paged attention")
+    for bi, n in enumerate(lens):
+        if n == 0:
+            assert not got[bi].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d", cs.FLASH_CASES)
+def test_cuda_flash_attention_equals_plain_version(dtype, causal, bh, s, d):
+    from repro_torch.kernels import flash_attention as fa
+    g = _gpu_float_setup()
+    q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES == before + 1
+    cs.close(torch, got, fa.flash_attention_torch(q, k, v, causal=causal),
+             *cs.FLASH_TOL[cs.dtype_name(dtype)], "flash attention")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", cs.SSD_CASES)
+def test_cuda_mamba2_ssd_equals_plain_version(b, s, h, p, n, chunk):
+    from repro_torch.kernels import mamba2_ssd as ssd
+    args = cs.ssd_inputs(torch, _gpu_float_setup(), b, s, h, p, n)
+    before = ssd.LAUNCHES
+    got = ssd.mamba2_ssd(*args, chunk=chunk)
+    assert ssd.LAUNCHES == before + 1
+    cs.close(torch, got, ssd.mamba2_ssd_torch(*args, chunk=chunk),
+             *cs.SSD_TOL, "mamba2 ssd")
