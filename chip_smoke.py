@@ -9,7 +9,10 @@ and prints one JSON object a line:
   1. card     the card's name and power limit, as `nvidia-smi` gives them
               (also printed once as the raw CSV line);
   2. build    the `nvcc` build of `src/repro_torch/kernels/csrc/*.cu` from
-              the sources in this checkout, with its seconds;
+              the sources in this checkout, with its seconds, ptxas's
+              registers and spills, and the tensor-core instructions of
+              kernel E counted in `cuobjdump -sass` of the library (HGMMA
+              in the bf16 function, HMMA in the f32 one; 0 fails the run);
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card, exact (all-integer: the tolerance is 0):
               the arbiter kernel on random planes with ties and ineligible
@@ -23,8 +26,9 @@ and prints one JSON object a line:
               kernels C (paged attention), D (kv_quant), E (flash
               attention) and F (Mamba2 SSD) against their plain versions
               at small edge shapes (a zero-length sequence, -1 table
-              padding, GQA groups 1, 5 and 16, S=16 and 64, both input
-              types)
+              padding, GQA groups 1, 5 and 16; for flash `FLASH_CASES`:
+              Sq != Skv, blocks of 8 to 256 rows, D from 4 to 128, q
+              scaled by 8; both input types)
               at the bars `FLASH_TOL`, `PAGED_TOL`, `SSD_TOL` (the
               reference's in float32; one rounding of the output in
               bfloat16) and kv_quant's (scales rtol 1e-4, int8 within 1);
@@ -80,7 +84,9 @@ The seven kernels' launch counters are set to 0 just before each of the
 eleven paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
-version and its bound (and E beside `scaled_dot_product_attention`, C
+version and its bound (E's f32 bound is the lesser of the CUDA cores'
+float32 rate and three TF32 products at the TF32 tensor-core rate, since
+it runs 3xTF32; E beside `scaled_dot_product_attention`, C
 beside `ops.paged_attention_serial`); the megakernels are held against
 their plain versions once more at that shape; the arbiter kernel is also
 timed at the paper path's [120, 8]. Those launches are not counted. TF32
@@ -662,6 +668,7 @@ DECODE_PAGES = DECODE_B * DECODE_MAXP + 8
 PREFILL_S, TRAIN_S = 4096, 512
 SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 4096, 24, 64, 128, 128
 BF16_TC_FLOPS = 989e12                   # dense tensor cores, bf16
+TF32_TC_FLOPS = 495e12                   # dense tensor cores, TF32
 
 # Bars (atol, rtol) of each float kernel against its plain version on the
 # card. float32: the reference's own (tests/test_kernels.py). bfloat16:
@@ -683,7 +690,19 @@ PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
     (2, 8, 8, 32, 16, 2, (17, 32)),        # group 1
     (3, 40, 8, 128, 64, 3, (130, 64, 1)),  # Qwen2.5-14B widths
     (2, 64, 4, 128, 64, 2, (100, 0)))      # Qwen3-MoE: group 16
-FLASH_CASES = ((2, 64, 16), (1, 16, 8), (1, 256, 64), (2, 128, 128))
+# flash: (bh, sq, skv, d, q_scale). Sq != Skv both ways; blocks of 8 and
+# 48 rows (not a multiple of 16); D of 4, 12 and 100 (not a multiple of 8
+# or 16); q scaled by 8, which widens the scores 8x and moves the running
+# max across tiles. (Scaling k and v too would widen the scores 64x, and
+# the float32 plain version alone then lies further than FLASH_TOL from
+# the exact result, so no float32 kernel that sums in another order could
+# be held to it.)
+FLASH_CASES = ((2, 64, 64, 16, 1), (1, 16, 16, 8, 1), (1, 256, 256, 64, 1),
+               (2, 128, 128, 128, 1),
+               (1, 128, 256, 128, 1), (2, 256, 128, 64, 1),
+               (2, 8, 8, 16, 1), (1, 48, 48, 32, 1),
+               (1, 64, 64, 4, 1), (2, 32, 32, 12, 1), (1, 128, 128, 100, 1),
+               (1, 256, 256, 64, 8))
 SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),   # b, s, h, p,
              (1, 256, 2, 64, 128, 128))                      # n, chunk
 
@@ -702,6 +721,14 @@ def close(torch, got, want, atol, rtol, what):
     torch.testing.assert_close(g, w, atol=atol, rtol=rtol,
                                msg=lambda m: f"{what}: {m}")
     return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def flash_inputs(torch, g, bh, sq, skv, d, q_scale):
+    """q [bh, sq, d] (times `q_scale`), k and v [bh, skv, d], float32 on
+    the card, for a `FLASH_CASES` entry."""
+    q = torch.randn((bh, sq, d), generator=g, device="cuda") * q_scale
+    return (q, *(torch.randn((bh, skv, d), generator=g, device="cuda")
+                 for _ in range(2)))
 
 
 def check_kv_quant(torch, pages, q8, sc, what):
@@ -752,7 +779,9 @@ def paged_case(torch, np, b, h, hkv, d, t, maxp, lens, seed):
 def check_float_kernels(torch, np):
     """C, D, E, F against their plain versions on the card at small edge
     shapes: ragged lengths, a zero-length sequence, -1 table padding, GQA
-    groups 1, 5 and 16, S=64 and 16 for flash, both input types."""
+    groups 1, 5 and 16, and for flash `FLASH_CASES` (Sq != Skv, blocks
+    of 8 and 48 rows, D of 4, 12 and 100, a wide score range), both input
+    types."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -784,15 +813,16 @@ def check_float_kernels(torch, np):
                                      f"non-zero output")
     out["paged_attention"] = errs
     errs = {}
-    for (bh, s, d) in FLASH_CASES:
-        q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
-                   for _ in range(3))
+    for case in FLASH_CASES:
+        q, k, v = flash_inputs(torch, g, *case)
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
                 got = fa.flash_attention(qd, kd, vd, causal=causal)
                 want = fa.flash_attention_torch(qd, kd, vd, causal=causal)
-                key = f"flash {dtype} BH{bh} S{s} D{d} causal={causal}"
+                bh, sq, skv, d, qs = case
+                key = (f"flash {dtype} BH{bh} Sq{sq} Skv{skv} D{d} "
+                       f"q_scale{qs} causal={causal}")
                 errs[key] = close(torch, got, want,
                                   *FLASH_TOL[dtype_name(dtype)], key)
     out["flash_attention"] = errs
@@ -977,13 +1007,24 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
             q, *cache, page_size=PAGE), 5),
         bound_ms=ms, bound_by=b_by, bytes=nbytes)
     fl = fa.operations(QWEN_H, PREFILL_S, PREFILL_S, QWEN_D, True)
-    for dt, peak in ((torch.bfloat16, BF16_TC_FLOPS),
-                     (torch.float32, FP32_FLOPS)):
+    for dt in (torch.bfloat16, torch.float32):
         a = [x.to(dt) for x in qkv]
         # q, k, v read once and the output written once
-        ms, b_by = bound(4 * a[0].numel() * a[0].element_size(), fl, peak)
+        nbytes = 4 * a[0].numel() * a[0].element_size()
+        if dt == torch.bfloat16:
+            ms, b_by = bound(nbytes, fl, BF16_TC_FLOPS)
+            how = "bf16 tensor cores"
+        else:
+            # the least time for a float32-accurate result: the CUDA
+            # cores' float32 rate, or three TF32 products (3xTF32) on the
+            # tensor cores, whichever is faster
+            (ms, b_by), how = min(
+                (bound(nbytes, fl, FP32_FLOPS), "float32 CUDA cores"),
+                (bound(nbytes, 3 * fl, TF32_TC_FLOPS),
+                 "3xTF32 tensor cores"))
         out[f"flash_attention_{dtype_name(dt)}"] = dict(
             shape=list(a[0].shape), causal=True, operations=fl,
+            bound_note=how,
             ms=time_cuda(torch, lambda i: fa.flash_attention(
                 *a, causal=True), 5),
             plain_ms=time_cuda(torch, lambda i: fa.flash_attention_torch(
@@ -1007,6 +1048,33 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
             *ssd_args, chunk=SSD_CHUNK), 3),
         bound_ms=ms, bound_by=b_by, bytes=nbytes)
     return out
+
+
+def sass_counts(path):
+    """Tensor-core instructions in kernel E's two functions, counted in
+    `cuobjdump -sass` of the built library: HGMMA (`wgmma`) in the bf16
+    kernel, HMMA (`mma.sync`) in the f32 one. Raises if either is 0: the
+    kernel would not be on the tensor cores."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    want = {"flash_attention_bf16_kernel": "HGMMA",
+            "flash_attention_f32_kernel": "HMMA"}
+    counts, fn = dict.fromkeys(want, 0), ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            continue
+        for name, op in want.items():
+            if name in fn and op in line:
+                counts[name] += 1
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"no {want[name]} instruction in {name}: "
+                                 f"it does not run on the tensor cores")
+    return {"flash_bf16_HGMMA": counts["flash_attention_bf16_kernel"],
+            "flash_f32_HMMA": counts["flash_attention_f32_kernel"]}
 
 
 # ---------------------------------------------------------------- main
@@ -1051,9 +1119,10 @@ def main() -> int:
     _build.load()
     regs = [ln.strip() for ln in _build.info["log"].splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    sass = sass_counts(_build.info["path"])
     emit({"phase": "build", "seconds": round(_build.info["seconds"], 3),
           "reused": _build.info["reused"], "library": os.path.relpath(
-              _build.info["path"], HERE), "ptxas": regs})
+              _build.info["path"], HERE), "ptxas": regs, "sass": sass})
 
     # 3. kernels against their plain versions
     policies = tuple(list_policies())
@@ -1218,10 +1287,15 @@ def main() -> int:
          "library_ms": fl_bf["library_ms"],
          "library_call": "torch.nn.functional.scaled_dot_product_attention"
                          "(is_causal=True)",
+         "bound_note": fl_bf["bound_note"],
          "f32_max_abs_err": pre["max_abs_err"]["torch.float32"],
          "f32_ms": fl_32["ms"], "f32_plain_ms": fl_32["plain_ms"],
          "f32_bound_ms": fl_32["bound_ms"],
-         "f32_library_ms": fl_32["library_ms"]},
+         "f32_bound_by": fl_32["bound_by"],
+         "f32_bound_note": fl_32["bound_note"],
+         "f32_library_ms": fl_32["library_ms"],
+         "sass_HGMMA_bf16": sass["flash_bf16_HGMMA"],
+         "sass_HMMA_f32": sass["flash_f32_HMMA"]},
         {"name": "mamba2_ssd_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
          "replaces": "src/repro/kernels/mamba2_ssd.py:72",

@@ -1,36 +1,45 @@
 """Causal or non-causal attention forward with an online softmax as a CUDA
-kernel (kernel E).
+kernel on the H100's tensor cores (kernel E).
 
 Replaces the TPU kernel `_flash_kernel` of the JAX package
 (`repro/kernels/flash_attention.py`): q/k/v `[BH, S, D]` (kv already
-GQA-expanded), q and kv blocks of `min(128, S)` rows, the softmax taken
-in float32 with masked scores at -1e30, and under causality a kv block
-skipped when `k_start > q_start + q_blk - 1` — exactly the blocks the
-TPU kernel skips.
+GQA-expanded), q and kv blocks of `min(128, S)` rows (a length the block
+does not divide raises), causal meaning `qpos >= kpos` counted from 0 also
+when `Sq != Skv`, the softmax taken in float32 with masked scores at
+-1e30, `out = acc / max(l, 1e-30)`.
 
 Beside the kernel, as beside every kernel of this package:
 
   * the plain PyTorch version is the oracle `ref.flash_attention`;
-  * `flash_attention` is the wrapper around the hand-written kernel
-    `flash_attention_kernel` (`csrc/flash_attention.cu`). It takes the
-    plain version only for tensors that lie on the CPU; for CUDA tensors
-    it launches the kernel or raises;
+  * `flash_attention` is the wrapper around the hand-written kernels
+    `flash_attention_bf16_kernel` and `flash_attention_f32_kernel`
+    (`csrc/flash_attention.cu`). It takes the plain version only for
+    tensors that lie on the CPU; for CUDA tensors it launches the kernel
+    of their dtype or raises;
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
-What bounds it on an H100: operations. A causal prefill at S=4096,
-D=128 needs S(S+1)/2 (q, k) pairs a head, 4·D floating-point operations
-each, against 4·S·D elements of input and output. The kernel computes on the CUDA cores in
-float32 for both input types (bf16 is loaded, widened, and the result
-narrowed on the store), so its ceiling is the float32 rate, not the
-tensor cores'. Block shape: one block of 256 threads (8 warps) per
-(head, q block of 128 rows); the q block, scaled, sits in shared memory
-in float32, and the kv block is walked in sub-tiles of 32 keys. A thread
-owns 4 rows × 4 keys of each score tile and 4 rows × 16 columns of the
-float32 accumulator — a 128-row tile with its accumulator split over all
-256 threads' registers, since one thread cannot hold a row of D=128 and
-its sums. The q blocks of a head are issued heaviest first (the last
-causal block reads the most kv blocks).
+What bounds it on an H100: operations. A causal prefill at S=4096, D=128
+needs S(S+1)/2 (q, k) pairs a head, 4·D floating-point operations each,
+against 4·S·D elements of input and output. Both types compute on the
+tensor cores, in blocks of two warpgroups per (head, 128-row q block):
+
+  * bf16: `wgmma` with float32 accumulation, S = Q·Kᵀ from shared memory
+    and O += P·V with P in registers, over kv tiles of 128 keys. P is
+    split into P_hi = bf16(p) and P_lo = bf16(p - P_hi) and multiplied
+    twice, because one bf16 rounding of P misses the card's bf16 bar (one
+    rounding of the output; `chip_smoke.FLASH_TOL`) on a few elements in
+    10^4, while the split meets it. That is 1.5x the function's tensor
+    work; the bound counts the function's own.
+  * f32: 3xTF32 on `mma.sync` (a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, each
+    part rounded to the nearest TF32 value): single-pass TF32 misses the
+    float32 bar (2e-5) by ~40x, and the TF32 `wgmma` cannot read V, which
+    is contiguous in D, as its B operand. Its least time is therefore
+    three TF32 products at the TF32 peak, below the CUDA cores' float32
+    bound.
+
+`tests/test_torch_flash_numerics.py` emulates both arithmetics on the CPU
+against the bars.
 """
 from __future__ import annotations
 
@@ -62,9 +71,10 @@ def blocks(sq: int, skv: int) -> tuple[int, int]:
 
 def operations(bh: int, sq: int, skv: int, d: int, causal: bool) -> int:
     """Floating-point operations the function needs: for each (q, k) pair
-    it does not mask (k ≤ q under causality; the kernel also computes the
-    masked half of each diagonal block), 2·D for the score and as many for
-    P·V."""
+    it does not mask (k ≤ q under causality), 2·D for the score and as
+    many for P·V. Work the kernels add is not counted: the masked parts
+    of the tiles they compute, P·V taken twice for the split P in bf16,
+    three TF32 products for each float32 one."""
     blocks(sq, skv)                   # raises where the function raises
     pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
              else sq * skv)

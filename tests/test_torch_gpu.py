@@ -145,12 +145,11 @@ def test_cuda_paged_attention_equals_plain_version(dtype, b, h, hkv, d, t,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("bh,s,d", cs.FLASH_CASES)
-def test_cuda_flash_attention_equals_plain_version(dtype, causal, bh, s, d):
+@pytest.mark.parametrize("case", cs.FLASH_CASES)
+def test_cuda_flash_attention_equals_plain_version(dtype, causal, case):
     from repro_torch.kernels import flash_attention as fa
     g = _gpu_float_setup()
-    q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
-               for _ in range(3))
+    q, k, v = (x.to(dtype) for x in cs.flash_inputs(torch, g, *case))
     before = fa.LAUNCHES
     got = fa.flash_attention(q, k, v, causal=causal)
     assert fa.LAUNCHES == before + 1
