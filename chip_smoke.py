@@ -20,10 +20,13 @@ and prints one JSON object a line:
               tick-loop megakernel (closed A1, open A2) against
               `backend="torch"` on the card and `backend="batched"` on
               the host over the conformance, multirank and subarray grids
-              of its mode; both megakernels on 128-bank cells (16 banks x
-              4 ranks x 2 channels, their wide instantiation) against
-              their plain versions on the same device inputs; the float
-              kernels C (paged attention), D (kv_quant), E (flash
+              of its mode, and over the grids that stress the kernels'
+              group-of-lanes orderings (`lane_order_specs`: tie-heavy
+              policies at 2 ranks x 2 channels, 40-bank cells whose lanes
+              own two banks each); both megakernels on 128-bank cells (16
+              banks x 4 ranks x 2 channels, their wide instantiation)
+              against their plain versions on the same device inputs; the
+              float kernels C (paged attention), D (kv_quant), E (flash
               attention) and F (Mamba2 SSD) against their plain versions
               at small edge shapes (a zero-length sequence, -1 table
               padding, GQA groups 1, 5 and 16; for flash `FLASH_CASES`:
@@ -88,8 +91,11 @@ version and its bound (E's f32 bound is the lesser of the CUDA cores'
 float32 rate and three TF32 products at the TF32 tensor-core rate, since
 it runs 3xTF32; E beside `scaled_dot_product_attention`, C
 beside `ops.paged_attention_serial`); the megakernels are held against
-their plain versions once more at that shape; the arbiter kernel is also
-timed at the paper path's [120, 8]. Those launches are not counted. TF32
+their plain versions once more at that shape, and also at the small
+grids' shapes (A1 at the paper grid, seed 1; A2 at the open reference
+grid), each with its launch layout (lanes a cell, cells a block,
+registers, shared memory); the arbiter kernel is also timed at the paper
+path's [120, 8]. Those launches are not counted. TF32
 is switched off, so the plain versions compute in full float32. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``. Any
 failing phase raises: the exit code is then non-zero and no result line
@@ -134,6 +140,10 @@ OPEN_REQS = 400
 # one registered policy of each vectorized kind, for the 128-bank checks
 ONE_PER_KIND = ("ideal", "ref_ab", "staggered_ab", "ref_pb", "darp",
                 "rank_aware_darp", "elastic", "hira")
+# the policies whose picks tie most: first maxima over lag and demand keys,
+# rank and channel round-robins
+TIE_POLICIES = ("hira", "rank_aware_darp", "staggered_ab", "elastic",
+                "round_robin")
 
 
 def emit(obj):
@@ -287,6 +297,31 @@ def open_conformance_specs(SweepSpec, policies):
             for s in (1, 4)]
     return [("open_conformance", conf), ("open_multirank", multi),
             ("open_subarray_s1", subs[0]), ("open_subarray_s4", subs[1])]
+
+
+def lane_order_specs(SweepSpec, policies):
+    """Grids that stress the megakernels' group-of-lanes orderings (ties
+    broken toward the lowest bank across ranks and channels, cores
+    issuing to one bank in one tick, two channels parking reads of one
+    core): `TIE_POLICIES` at 2 ranks x 2 channels in both modes, and
+    40-bank cells (5 ranks x 8 banks: more banks than lanes, so a lane
+    owns two) in both modes."""
+    def spec(pol, scn, dens, seed, mode, **kw):
+        return SweepSpec(policies=pol, scenarios=scn, densities=dens,
+                         reqs=400, seed=seed, mode=mode, **kw)
+    return [
+        ("ties_closed", spec(TIE_POLICIES, (
+            "closed_write_heavy", "closed_multirank",
+            "closed_subarray_storm"), (8, 32), 5, "closed", n_ranks=2,
+            n_channels=2)),
+        ("ties_open", spec(TIE_POLICIES, (
+            "bank_camping", "subarray_conflict_adversarial"), (8, 32), 5,
+            "open", n_ranks=2, n_channels=2)),
+        ("banks40_closed", spec(policies, ("closed_mixed",
+                                           "closed_multirank"), (32,), 6,
+                                "closed", n_ranks=5)),
+        ("banks40_open", spec(policies, ("mixed", "bank_camping"), (32,), 6,
+                              "open", n_ranks=5))]
 
 
 def check_megakernel(sweep, specs):
@@ -472,8 +507,9 @@ def full_arbiter_phase(sweep, spec, mega_res):
 
 
 def time_megakernel(torch, spec):
-    """The kernel and its plain version at the phase-5 shape, on the same
-    device inputs; the two results must be equal."""
+    """Kernel A1 and its plain version at the shape of `spec`'s grid (the
+    phase-5 ladder rung, the paper grid), on the same device inputs; the
+    two results must be equal."""
     from repro_torch.core.sweep.engine import _Grid
     from repro_torch.kernels import sweep_megakernel as mega
     grid = _Grid(spec, stack_streams=False)
@@ -507,6 +543,7 @@ def time_megakernel(torch, spec):
     ops = mega.closed_operations(cfg, params, stats, ticks)
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                launch=mega.launch_plan(cfg, n, params.device),
                 bound_ms=1e3 * max(bound_bytes, bound_ops),
                 bound_by="bytes" if bound_bytes >= bound_ops
                 else "operations", cells=n, cell_ticks=cell_ticks,
@@ -614,8 +651,9 @@ def open_ladder_phase(sweep, SweepSpec, make_trace, policies):
 
 
 def time_open_megakernel(torch, spec):
-    """Kernel A2 and its plain version at the open ladder's shape, on
-    the same device inputs; the two results must be equal."""
+    """Kernel A2 and its plain version at the shape of `spec`'s grid (the
+    open ladder rung, the open reference grid), on the same device
+    inputs; the two results must be equal."""
     from repro_torch.core.sweep.engine import _Grid
     from repro_torch.kernels import sweep_megakernel as mega
     grid = _Grid(spec, stack_streams=False)
@@ -645,6 +683,7 @@ def time_open_megakernel(torch, spec):
     ops = mega.open_operations(cfg, params, stats, ticks)
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                launch=mega.launch_plan(cfg, n, params.device),
                 bound_ms=1e3 * max(bound_bytes, bound_ops),
                 bound_by="bytes" if bound_bytes >= bound_ops
                 else "operations", cells=n, L=cfg.L, cell_ticks=cell_ticks,
@@ -1130,12 +1169,15 @@ def main() -> int:
     grids = check_megakernel(sweep, conformance_specs(SweepSpec, policies))
     open_grids = check_megakernel(sweep,
                                   open_conformance_specs(SweepSpec, policies))
+    lane_orders = check_megakernel(sweep, lane_order_specs(SweepSpec,
+                                                           policies))
     wide = check_wide(torch, sweep, SweepSpec)
     flt = check_float_kernels(torch, np)
     emit({"phase": "kernels", "arbiter": {
         "G": ARBITER_G, "B": ARBITER_B, "forms": ["closed", "open"],
         "max_abs_err": arb_err}, "megakernel": grids,
-        "open_megakernel": open_grids, "wide_128_banks": wide,
+        "open_megakernel": open_grids, "lane_orders": lane_orders,
+        "wide_128_banks": wide,
         "tolerance": 0, "float_kernels": flt, "float_tolerances": {
             "flash": FLASH_TOL, "paged_attention": PAGED_TOL,
             "mamba2_ssd": SSD_TOL, "kv_quant": "scales rtol 1e-4, int8 "
@@ -1204,10 +1246,13 @@ def main() -> int:
     ta_paper = time_arbiter(torch, np, len(FIG3_POLICIES)
                             * len(CLOSED_FIG_SCENARIOS) * len(DENSITIES))
     tm = time_megakernel(torch, full_spec)
+    tm_paper = time_megakernel(torch, paper_spec)
     to = time_open_megakernel(torch, ladder_spec_open)
+    to_grid = time_open_megakernel(torch, open_spec)
     tf = time_float_kernels(torch, dec_in, qkv, ssd_args)
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
-          "megakernel": tm, "open_megakernel": to, **tf,
+          "megakernel": tm, "megakernel_paper_grid": tm_paper,
+          "open_megakernel": to, "open_megakernel_open_grid": to_grid, **tf,
           "seconds_total": round(time.perf_counter() - t_start, 1)})
     fl_bf, fl_32 = tf["flash_attention_bfloat16"], tf["flash_attention_float32"]
     emit({"kernels": [
@@ -1220,7 +1265,10 @@ def main() -> int:
          "max_abs_err": tm["max_abs_err"],
          "ms": tm["ms"], "plain_ms": tm["plain_ms"],
          "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "launch": tm["launch"],
+         "paper_grid": {k: tm_paper[k] for k in (
+             "cells", "ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err", "max_ticks_per_cell", "launch")}},
         {"name": "sweep_mega_open_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sweep_megakernel_open.cu",
          "replaces": "src/repro/kernels/sweep_megakernel.py:269",
@@ -1230,7 +1278,10 @@ def main() -> int:
          "max_abs_err": to["max_abs_err"],
          "ms": to["ms"], "plain_ms": to["plain_ms"],
          "bound_ms": to["bound_ms"], "bound_by": to["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "launch": to["launch"],
+         "open_grid": {k: to_grid[k] for k in (
+             "cells", "ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err", "max_ticks_per_cell", "launch")}},
         {"name": "sweep_arbiter_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sweep_arbiter.cu",
          "replaces": "src/repro/kernels/sweep_arbiter.py:96",

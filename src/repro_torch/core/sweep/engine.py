@@ -2024,8 +2024,8 @@ def _run_mega(grid: _Grid, n_shards: int = 1, device=None,
               seconds: Optional[dict] = None) -> list[CellResult]:
     """The CUDA tick-loop megakernels
     (`repro_torch.kernels.sweep_megakernel`, one for each mode): every
-    cell runs its whole tick loop in one thread of one launch, reads its
-    scenario's stream plane by index, exits alone, and ships home only
+    cell runs its whole tick loop on a group of lanes of one launch, reads
+    its scenario's stream plane by index, exits alone, and ships home only
     its integer stat row (p99 reduced in the kernel — no [G, 4096]
     histogram round-trip).
     With CPU tensors the same host layout runs the plain version

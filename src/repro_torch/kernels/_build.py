@@ -55,7 +55,7 @@ def _fields_header() -> str:
     from the Python single sources of truth."""
     from repro_torch.core.sweep import fields, policies
     from repro_torch.core.sweep.engine import MAX_LAT_TICKS, _PAD_ARRIVE
-    from repro_torch.kernels.sweep_megakernel import MAX_BANKS
+    from repro_torch.kernels.sweep_megakernel import MAX_BANKS, MAX_CORES
     lines = ["// generated by repro_torch/kernels/_build.py - do not edit",
              "#pragma once"]
     for name in fields.__all__:
@@ -67,6 +67,7 @@ def _fields_header() -> str:
     lines.append(f"#define MAX_LAT_TICKS {int(MAX_LAT_TICKS)}")
     lines.append(f"#define PAD_ARRIVE {int(_PAD_ARRIVE)}")
     lines.append(f"#define SWEEP_MAX_BANKS {int(MAX_BANKS)}")
+    lines.append(f"#define SWEEP_MAX_CORES {int(MAX_CORES)}")
     return "\n".join(lines) + "\n"
 
 
@@ -103,14 +104,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sweep_arbiter_launch.argtypes = [p] * 12 + [i] * 3 + [p]
     lib.sweep_arbiter_launch.restype = i
-    lib.sweep_mega_closed_launch.argtypes = [p] * 13 + [i] * 14 + [p]
+    lib.sweep_mega_closed_launch.argtypes = [p] * 14 + [i] * 15 + [p]
     lib.sweep_mega_closed_launch.restype = i
-    lib.sweep_mega_closed_scratch_words.argtypes = [i] * 7
-    lib.sweep_mega_closed_scratch_words.restype = ctypes.c_longlong
-    lib.sweep_mega_open_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+    lib.sweep_mega_closed_plan.argtypes = [i] * 10 + [p]
+    lib.sweep_mega_closed_plan.restype = i
+    lib.sweep_mega_open_launch.argtypes = [p] * 11 + [i] * 11 + [p]
     lib.sweep_mega_open_launch.restype = i
-    lib.sweep_mega_open_scratch_words.argtypes = [i] * 4
-    lib.sweep_mega_open_scratch_words.restype = ctypes.c_longlong
+    lib.sweep_mega_open_plan.argtypes = [i] * 8 + [p]
+    lib.sweep_mega_open_plan.restype = i
     lib.sweep_error_string.argtypes = [i]
     lib.sweep_error_string.restype = ctypes.c_char_p
     # the float kernels: one entry point per input dtype

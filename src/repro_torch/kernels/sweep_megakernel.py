@@ -23,36 +23,36 @@ As beside every kernel of this package, for each of the two:
 
 What bounds the kernels on an H100: latency. A cell's inputs and outputs
 are a few hundred bytes and its arithmetic is a few hundred integer
-operations a tick, but the ticks of one cell form a serial chain of
-dependent loads and stores on that cell's own state. The design therefore
-runs one cell per thread and as many cells at once as the grid has (a
-10^5-cell grid fills every SM), keeps counters and bank masks in
-registers, and lays the remaining per-cell state out `[word][cell]` in
-global scratch so that the lanes of a warp — neighbouring cells, sorted
-here to share scenario, density and policy kind — touch the same lines
-while they run in step. The source's header says why a warp per cell was
-not chosen.
+operations a tick, but the ticks of one cell form a chain of small
+dependent steps, most of them walks over the cell's banks and cores. The
+design therefore runs a cell on a group of G lanes (G the smallest power
+of two covering its banks and cores, 8 to 32): a lane owns a bank (and a
+core), the walks become warp collectives over the group, and the state a
+tick touches sits in registers and shared memory (`csrc/sweep_tick.cuh`
+says how the serial orders are kept). Blocks stay resident and take cells
+from a counter, so the scratch is a few group slots' worth (a 4096-bin
+histogram each, plus closed ring queues of `B*LQ` 16-byte entries), not a
+cell's worth each.
 
 Layout: cells are sorted scenario-major (then density, then policy kind)
-so that neighbouring threads replay the same demand stream and take
+so that neighbouring groups replay the same demand stream and take
 similar branches; each cell reads its scenario's stream plane at
 `scn_of_cell` (a 10^5-cell grid carries `n_scenarios` stream copies, not
 10^5): closed, the per-core streams ``sw sb sr ssub sth [NS, C, N]``
 and `nreq [NS, C]`; open, the per-bank arrival FIFOs ``qa qr qs qw [NS,
-B, L]`` and `npb [NS, B]`. Cells go to the device in chunks of
-`chunk_cells`, which bounds the scratch (a 4096-bin histogram per cell,
-plus ring queues of `5*B*LQ` words closed: about 37 KB a cell at B=8,
-LQ=128, and 17 KB open); no pad rows are needed, the last block masks
-its tail, and the `MP_PAD` column stays 0 and is not read. With
-`n_shards` cards the sorted rows are cut into that many contiguous
-shares; a card is sent its share's rows and the stream planes of the
-scenarios they name, and nothing else.
+B, L]`` and `npb [NS, B]`. `chunk_cells` may cut a grid into several
+launches (by default one takes it all); no pad rows are needed, and the
+`MP_PAD` column stays 0 and is not read. With `n_shards` cards the sorted
+rows are cut into that many contiguous shares; a card is sent its share's
+rows and the stream planes of the scenarios they name, and nothing else.
 
-Cells of up to `MAX_BANKS` global banks are taken; the kernels keep sets
-of banks in one register up to 64 banks and in `MAX_BANKS / 64` words
-above (a second instantiation, `csrc/sweep_tick.cuh`).
+Cells of up to `MAX_BANKS` global banks and `MAX_CORES` cores are taken;
+past 32 of either a cell runs the kernels' wide instantiation (32 lanes,
+each with up to `MAX_BANKS / 32` bank slots).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -81,18 +81,15 @@ LAUNCHES = 0
 #: number of kernel launches made by `mega_open_cells` in this process
 OPEN_LAUNCHES = 0
 
-#: device scratch a chunk may take (ring queues + histograms); the
-#: default `chunk_cells` is the largest cell count that fits
-SCRATCH_BYTES = 8 << 30
+#: most cells a block the size rule picks: blocks stay resident, and
+#: small ones fill an SM in fine steps
+MAX_BLOCK_CELLS = 16
 
-#: largest block the size rule picks: cells diverge, so small blocks
-#: retire sooner and spread over the SMs more evenly
-MAX_THREADS = 64
-
-#: global banks per cell the kernels take (bank sets of up to
-#: `MAX_BANKS / 64` 64-bit words; written into the kernels' generated
-#: header as SWEEP_MAX_BANKS)
+#: global banks per cell the kernels take (written into the kernels'
+#: generated header as SWEEP_MAX_BANKS)
 MAX_BANKS = 256
+#: cores per closed-loop cell the kernels take (SWEEP_MAX_CORES)
+MAX_CORES = 256
 
 _STREAMS = ("sw", "sb", "sr", "ssub", "sth")
 _OPEN_STREAMS = ("qa", "qr", "qs", "qw")
@@ -132,21 +129,6 @@ def _layout(grid) -> np.ndarray:
     d_index = {d: i for i, d in enumerate(grid.spec.densities)}
     d_of = np.array([d_index[d] for _, _, d in grid.cells], np.int32)
     return np.lexsort((grid.kind, d_of, grid.scn_of_cell)).astype(np.int64)
-
-
-def _default_chunk(cfg) -> int:
-    """Cells whose scratch fits `SCRATCH_BYTES`: the histogram, the
-    machine state (`2*B*S + 5*B + 2*NC + 2*R` words) and the mode's own
-    (closed: ring queues, core state and MLP slots; open: the FIFO
-    counts `n_arrived`, `n_served`), as `*_layout` in the sources."""
-    B = cfg.B
-    words = ((MAX_LAT_TICKS + 1) + 2 * B * cfg.S + 5 * B + 2 * cfg.NC
-             + 2 * cfg.R)
-    if cfg.closed:
-        words += 5 * B * cfg.LQ + 2 * B + cfg.C * (5 + cfg.K)
-    else:
-        words += 2 * B
-    return max(1, SCRATCH_BYTES // (4 * words))
 
 
 # ------------------------------------------------------- plain version
@@ -226,15 +208,19 @@ def _plain_open_cells(cfg, params, scn_of_cell, streams, npb):
 
 # ---------------------------------------------------- operations counted
 def closed_operations(cfg, params, stats, ticks) -> int:
-    """Integer operations `sweep_mega_closed_kernel` performs for these
-    cells on this data, counted from its source (`csrc/
-    sweep_megakernel.cu`, `sweep_tick.cuh`, `sweep_score.cuh`): one for
-    each compare, add/subtract, multiply, divide/modulo, logical or
-    shift, and select that the statements spell, none for loads, stores,
-    address arithmetic or loop counters. Where a branch depends on data
-    the outputs do not record (which `elastic` regime, a second `hira`
-    scan, banks skipped before scoring) the cheapest arm is counted, so
-    the sum is a floor. `params`, `stats`, `ticks` are the kernel's
+    """Integer operations the closed-loop tick loop performs for these
+    cells on this data, the yardstick of `sweep_mega_closed_kernel`'s
+    bound: counted from the serial form of the kernel, one thread a cell
+    walking each bank and core in turn (as `_mega_closed_kernel` of the
+    JAX package and the plain version spell the function): one for each
+    compare, add/subtract, multiply, divide/modulo, logical or shift, and
+    select that the statements spell, none for loads, stores, address
+    arithmetic or loop counters. The group-of-lanes kernel computes the
+    same function with other instructions; it is not recounted, so that
+    the bound does not follow the implementation. Where a branch depends
+    on data the outputs do not record (which `elastic` regime, a second
+    `hira` scan, banks skipped before scoring) the cheapest arm is
+    counted, so the sum is a floor. `params`, `stats`, `ticks` are the kernel's
     input rows and its two outputs.
 
     Per tick a cell runs (B banks, S subarrays, C cores, K window slots,
@@ -296,14 +282,15 @@ def _scan_operations(cfg, params) -> tuple:
 
 
 def open_operations(cfg, params, stats, ticks) -> int:
-    """Integer operations `sweep_mega_open_kernel` performs for these
-    cells on this data, counted from its source (`csrc/
-    sweep_megakernel_open.cu` and the shared `sweep_tick.cuh`,
-    `sweep_score.cuh`) by the rules of `closed_operations` (one for each
+    """Integer operations the open-loop tick loop performs for these
+    cells on this data, the yardstick of `sweep_mega_open_kernel`'s
+    bound: counted from the serial form of the kernel (one thread a cell,
+    each bank in turn), by the rules of `closed_operations` (one for each
     compare, add/subtract, multiply, divide/modulo, logical or shift,
     and select; none for loads, stores, address arithmetic or loop
     counters; the cheapest arm where the outputs do not record a
-    branch, so the sum is a floor). `params`, `stats`, `ticks` are the
+    branch, so the sum is a floor), and, like it, not recounted from the
+    group-of-lanes kernel. `params`, `stats`, `ticks` are the
     kernel's input rows and its two outputs.
 
     Every tick a cell runs (B banks, S subarrays, R ranks, NC channels,
@@ -343,15 +330,47 @@ def open_operations(cfg, params, stats, ticks) -> int:
 
 # ------------------------------------------------------------- the wrapper
 def _block_threads(n: int, device) -> int:
-    """Cells per block for an `n`-cell launch: the power of two nearest
-    above ``n / (4 * SMs)``, between 1 and `MAX_THREADS`. A cell is a
-    serial chain on its own state, so what a small grid needs is SMs and
-    cache to itself, not lanes: 120 cells run ~1.8x faster one to a block
-    (each on its own SM) than 64 to a block on two SMs, while 10^5 cells
-    fill the card at 64 (H100, `benchmarks_torch/tune_threads.py`)."""
+    """Cells a block (groups of G lanes) for an `n`-cell launch: the power
+    of two nearest above ``n / (4 * SMs)``, between 1 and
+    `MAX_BLOCK_CELLS`. A cell's tick is a chain of collectives over its
+    group, so what a small grid needs is SMs to itself: at one cell a
+    block the paper grid's 120 cells each take an SM. A large grid fills
+    every SM with resident blocks of `MAX_BLOCK_CELLS` cells, whose
+    groups take cells from a shared counter as they finish
+    (`benchmarks_torch/mega_variants.py` times other sizes)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, n // (4 * sms))
-    return min(MAX_THREADS, 1 << (want - 1).bit_length())
+    return min(MAX_BLOCK_CELLS, 1 << (want - 1).bit_length())
+
+
+_PLAN_KEYS = ("G", "cells_per_block", "blocks", "shared_bytes_per_block",
+              "registers", "local_bytes")
+
+
+def launch_plan(cfg, n, device, threads=None) -> dict:
+    """How a launch of `n` cells of `cfg` is laid out on `device` (a
+    card): ``G`` lanes a cell, ``cells_per_block``, resident ``blocks``,
+    ``shared_bytes_per_block``, and the kernel instantiation's
+    ``registers`` and ``local_bytes`` (spills) a thread. `threads` asks
+    for cells a block (None: `_block_threads`); the kernel clamps it to
+    what a block holds."""
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    cells = int(threads) if threads else _block_threads(max(n, 1), device)
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        if cfg.closed:
+            err = lib.sweep_mega_closed_plan(
+                n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC, cfg.C, cfg.K,
+                cfg.LQ, cells, ctypes.addressof(out))
+        else:
+            err = lib.sweep_mega_open_plan(
+                n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC, cfg.L, cells,
+                ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"megakernel launch plan failed: CUDA error "
+                           f"{err} ({_build.error_string(err)})")
+    return dict(zip(_PLAN_KEYS, map(int, out)))
 
 
 def _check(who, name, x, shape, device):
@@ -409,9 +428,9 @@ def mega_closed_cells(cfg, params, scn_of_cell, streams, nreq, *,
     streams     : dict of the five `[NS, C, N]` int32 per-scenario planes
                   ``sw sb sr ssub sth``
     nreq        : `[NS, C]` int32 requests per core
-    threads     : cells per block; None picks by grid size
-                  (`_block_threads`); only the block-size sweep
-                  `benchmarks_torch/tune_threads.py` pins it
+    threads     : cells (groups of G lanes) a block; None picks by grid
+                  size (`_block_threads`); only the variants script
+                  `benchmarks_torch/mega_variants.py` pins it
 
     Returns ``(stats [n, MEGA_NSTAT] int32, core_finish [n, C] int32,
     ticks [n] int32 or None)`` on the inputs' device. CUDA tensors go
@@ -430,27 +449,30 @@ def mega_closed_cells(cfg, params, scn_of_cell, streams, nreq, *,
     if device.type == "cpu":
         return _plain_closed_cells(cfg, params, scn_of_cell, streams, nreq)
 
+    if cfg.C > MAX_CORES:
+        raise ValueError(f"{who}: {cfg.C} cores per cell, the kernel takes "
+                         f"at most MAX_CORES={MAX_CORES}")
     from repro_torch.kernels import _build
     lib = _build.load()
-    words = int(lib.sweep_mega_closed_scratch_words(
-        cfg.B, cfg.S, cfg.NC, cfg.R, cfg.C, cfg.K, cfg.LQ))
     i32 = dict(dtype=torch.int32, device=device)
     stats = torch.empty((n, MEGA_NSTAT), **i32)
     cf = torch.empty((n, cfg.C), **i32)
     ticks = torch.empty((n,), **i32)
     if n == 0:
         return stats, cf, ticks
-    scratch = torch.empty((words, n), **i32)
-    hist = torch.zeros((MAX_LAT_TICKS + 1, n), **i32)
+    plan = launch_plan(cfg, n, device, threads)
+    slots = plan["blocks"] * plan["cells_per_block"]
+    ring = torch.empty((slots, cfg.B * cfg.LQ, 4), **i32)
+    hist = torch.zeros((slots, MAX_LAT_TICKS + 1), **i32)
+    next_cell = torch.zeros((1,), **i32)
     with torch.cuda.device(device):
         err = lib.sweep_mega_closed_launch(
             params.data_ptr(), scn_of_cell.data_ptr(),
             *(streams[k].data_ptr() for k in _STREAMS), nreq.data_ptr(),
             stats.data_ptr(), cf.data_ptr(), ticks.data_ptr(),
-            scratch.data_ptr(), hist.data_ptr(),
+            ring.data_ptr(), hist.data_ptr(), next_cell.data_ptr(),
             n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC, cfg.C, cfg.N, cfg.K,
-            cfg.LQ, cfg.HI, cfg.LO, cfg.CAP,
-            int(threads) if threads else _block_threads(n, device),
+            cfg.LQ, cfg.HI, cfg.LO, cfg.CAP, plan["cells_per_block"], slots,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -471,8 +493,8 @@ def mega_open_cells(cfg, params, scn_of_cell, streams, npb, *,
                   FIFOs ``qa qr qs qw`` (arrival tick, row, subarray,
                   write flag; `_PAD_ARRIVE` past the real entries)
     npb         : `[NS, B]` int32 real entries per FIFO
-    threads     : cells per block; None picks by grid size
-                  (`_block_threads`)
+    threads     : cells (groups of G lanes) a block; None picks by grid
+                  size (`_block_threads`)
 
     Returns ``(stats [n, MEGA_NSTAT] int32, ticks [n] int32 or None)`` on
     the inputs' device. CUDA tensors go through the kernel — a missing
@@ -492,23 +514,22 @@ def mega_open_cells(cfg, params, scn_of_cell, streams, npb, *,
 
     from repro_torch.kernels import _build
     lib = _build.load()
-    words = int(lib.sweep_mega_open_scratch_words(cfg.B, cfg.S, cfg.NC,
-                                                  cfg.R))
     i32 = dict(dtype=torch.int32, device=device)
     stats = torch.empty((n, MEGA_NSTAT), **i32)
     ticks = torch.empty((n,), **i32)
     if n == 0:
         return stats, ticks
-    scratch = torch.empty((words, n), **i32)
-    hist = torch.zeros((MAX_LAT_TICKS + 1, n), **i32)
+    plan = launch_plan(cfg, n, device, threads)
+    slots = plan["blocks"] * plan["cells_per_block"]
+    hist = torch.zeros((slots, MAX_LAT_TICKS + 1), **i32)
+    next_cell = torch.zeros((1,), **i32)
     with torch.cuda.device(device):
         err = lib.sweep_mega_open_launch(
             params.data_ptr(), scn_of_cell.data_ptr(),
             *(streams[k].data_ptr() for k in _OPEN_STREAMS), npb.data_ptr(),
-            stats.data_ptr(), ticks.data_ptr(), scratch.data_ptr(),
-            hist.data_ptr(), n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC,
-            cfg.L, cfg.HI, cfg.LO,
-            int(threads) if threads else _block_threads(n, device),
+            stats.data_ptr(), ticks.data_ptr(), hist.data_ptr(),
+            next_cell.data_ptr(), n, cfg.B, cfg.S, cfg.NB, cfg.NR, cfg.NC,
+            cfg.L, cfg.HI, cfg.LO, plan["cells_per_block"], slots,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -596,7 +617,7 @@ def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
     exactly the inputs `engine._finalize` needs.
 
     `device=None` means the card; `chunk_cells` bounds the cells per
-    launch (default: what `SCRATCH_BYTES` of scratch holds). `n_shards`
+    launch (default: a share in one launch). `n_shards`
     cuts the kernel rows into that many contiguous shares, one per card
     (``cuda:0 .. cuda:n_shards-1``), and raises `ValueError` when fewer
     cards are visible; launches are asynchronous, so the cards run their
@@ -609,8 +630,7 @@ def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
 
     cfg, order, params_h, scn_h = host_inputs(grid)
     G = grid.G
-    chunk = int(chunk_cells) if chunk_cells else _default_chunk(cfg)
-    chunk = max(1, chunk)
+    chunk = max(1, int(chunk_cells) if chunk_cells else G)
     parts = []
     for d, (r0, r1) in zip(devices, _shares(G, len(devices))):
         if r1 == r0:

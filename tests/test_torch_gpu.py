@@ -73,6 +73,22 @@ def test_cuda_megakernels_take_128_bank_cells(grid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["ties_closed", "ties_open",
+                                  "banks40_closed", "banks40_open"])
+def test_cuda_megakernels_keep_the_serial_orders(grid):
+    """The group-of-lanes kernels on `chip_smoke.lane_order_specs`:
+    tie-heavy policies at 2 ranks x 2 channels, and 40-bank cells whose
+    lanes own two banks each; difference 0 against the plain version."""
+    _need_card()
+    spec = dict(cs.lane_order_specs(SweepSpec, tuple(list_policies())))[grid]
+    before = mega.LAUNCHES + mega.OPEN_LAUNCHES
+    on_card = sweep(spec, "mega")
+    assert mega.LAUNCHES + mega.OPEN_LAUNCHES == before + 1
+    assert_cells_equal(sweep(spec, "mega", device="cpu"), on_card, grid)
+    assert_cells_equal(sweep(spec, "batched"), on_card, grid)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("grid", ["kernels", "open_kernels"])
 def test_cuda_arbiter_equals_plain_version(grid):
     _need_card()
