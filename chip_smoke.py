@@ -10,9 +10,10 @@ and prints one JSON object a line:
               (also printed once as the raw CSV line);
   2. build    the `nvcc` build of `src/repro_torch/kernels/csrc/*.cu` from
               the sources in this checkout, with its seconds, ptxas's
-              registers and spills, and the tensor-core instructions of
-              kernel E counted in `cuobjdump -sass` of the library (HGMMA
-              in the bf16 function, HMMA in the f32 one; 0 fails the run);
+              registers and spills, and the tensor-core instructions
+              counted in `cuobjdump -sass` of the library (HGMMA in kernel
+              E's bf16 function, HMMA in its f32 one and in kernel F; 0
+              fails the run);
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card, exact (all-integer: the tolerance is 0):
               the arbiter kernel on random planes with ties and ineligible
@@ -29,9 +30,11 @@ and prints one JSON object a line:
               float kernels C (paged attention), D (kv_quant), E (flash
               attention) and F (Mamba2 SSD) against their plain versions
               at small edge shapes (a zero-length sequence, -1 table
-              padding, GQA groups 1, 5 and 16; for flash `FLASH_CASES`:
-              Sq != Skv, blocks of 8 to 256 rows, D from 4 to 128, q
-              scaled by 8; both input types)
+              padding, GQA groups 1, 5 and 16, a sequence over six page
+              splits with a ragged last page, pages of 128 rows; for
+              flash `FLASH_CASES`: Sq != Skv, blocks of 8 to 256 rows, D
+              from 4 to 128, q scaled by 8; for the SSD `SSD_CASES`: 64
+              chunks, P and N not multiples of 16; both input types)
               at the bars `FLASH_TOL`, `PAGED_TOL`, `SSD_TOL` (the
               reference's in float32; one rounding of the output in
               bfloat16) and kv_quant's (scales rtol 1e-4, int8 within 1);
@@ -87,10 +90,11 @@ The seven kernels' launch counters are set to 0 just before each of the
 eleven paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
-version and its bound (E's f32 bound is the lesser of the CUDA cores'
-float32 rate and three TF32 products at the TF32 tensor-core rate, since
-it runs 3xTF32; E beside `scaled_dot_product_attention`, C
-beside `ops.paged_attention_serial`); the megakernels are held against
+version and its bound (E's f32 bound and F's are the lesser of the CUDA
+cores' float32 rate and three TF32 products at the TF32 tensor-core
+rate, since both run 3xTF32; E beside `scaled_dot_product_attention`, C
+beside `ops.paged_attention_serial` and with q in float32 and in
+bfloat16); the megakernels are held against
 their plain versions once more at that shape, and also at the small
 grids' shapes (A1 at the paper grid, seed 1; A2 at the open reference
 grid), each with its launch layout (lanes a cell, cells a block,
@@ -728,7 +732,13 @@ PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
     (4, 10, 2, 16, 8, 4, (0, 9, 32, 1)),   # group 5, a zero length
     (2, 8, 8, 32, 16, 2, (17, 32)),        # group 1
     (3, 40, 8, 128, 64, 3, (130, 64, 1)),  # Qwen2.5-14B widths
-    (2, 64, 4, 128, 64, 2, (100, 0)))      # Qwen3-MoE: group 16
+    (2, 64, 4, 128, 64, 2, (100, 0)),      # Qwen3-MoE: group 16
+    # six page splits with a ragged last page, and a sequence whose
+    # splits past its first page have nothing to read
+    (2, 40, 8, 128, 64, 96, (6100, 1)),
+    # pages of 128 rows: two staged pieces a page, the last page's second
+    # piece past seq_len
+    (2, 16, 2, 64, 128, 4, (300, 129)))
 # flash: (bh, sq, skv, d, q_scale). Sq != Skv both ways; blocks of 8 and
 # 48 rows (not a multiple of 16); D of 4, 12 and 100 (not a multiple of 8
 # or 16); q scaled by 8, which widens the scores 8x and moves the running
@@ -742,8 +752,12 @@ FLASH_CASES = ((2, 64, 64, 16, 1), (1, 16, 16, 8, 1), (1, 256, 256, 64, 1),
                (2, 8, 8, 16, 1), (1, 48, 48, 32, 1),
                (1, 64, 64, 4, 1), (2, 32, 32, 12, 1), (1, 128, 128, 100, 1),
                (1, 256, 256, 64, 8))
-SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),   # b, s, h, p,
-             (1, 256, 2, 64, 128, 128))                      # n, chunk
+# ssd: (b, s, h, p, n, chunk). Chunks of 8 and 16 rows (one tensor-core
+# tile, part of one); 64 chunks, whose state crosses 63 look-back steps;
+# P and N not multiples of 16 (tiles padded with zeros).
+SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),
+             (1, 256, 2, 64, 128, 128), (2, 1024, 3, 64, 128, 16),
+             (1, 64, 2, 12, 20, 32))
 
 
 def dtype_name(dtype):
@@ -1036,6 +1050,7 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
     nbytes = (2 * rows + 2 * 4 * valid_pages * QWEN_HKV + 4 * valid_pages
               + 4 * DECODE_B + 2 * 4 * q.numel())
     ms, b_by = bound(nbytes, 0, 1.0)
+    qb = q.to(torch.bfloat16)
     out["paged_attention"] = dict(
         q=list(q.shape), valid_pages=valid_pages, dtype="float32",
         ms=time_cuda(torch, lambda i: rpa.refresh_paged_attention(
@@ -1044,7 +1059,13 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
             q, *cache, page_size=PAGE), 5),
         serial_ms=time_cuda(torch, lambda i: ops.paged_attention_serial(
             q, *cache, page_size=PAGE), 5),
-        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+        # q in bfloat16: two bytes less a q and output value
+        bf16_ms=time_cuda(torch, lambda i: rpa.refresh_paged_attention(
+            qb, *cache, page_size=PAGE), 20),
+        bf16_plain_ms=time_cuda(torch, lambda i: rpa.paged_attention_torch(
+            qb, *cache, page_size=PAGE), 5),
+        bound_ms=ms, bound_by=b_by, bytes=nbytes,
+        bf16_bound_ms=bound(nbytes - 2 * 2 * q.numel(), 0, 1.0)[0])
     fl = fa.operations(QWEN_H, PREFILL_S, PREFILL_S, QWEN_D, True)
     for dt in (torch.bfloat16, torch.float32):
         a = [x.to(dt) for x in qkv]
@@ -1078,9 +1099,13 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
     fl = ssd.operations(b, s, h, p, SSD_N, SSD_CHUNK)
     nbytes = 4 * (2 * ssd_args[0].numel() + ssd_args[1].numel() + h
                   + 2 * ssd_args[3].numel())
-    ms, b_by = bound(nbytes, fl, FP32_FLOPS)
+    # as for E in float32: the CUDA cores' float32 rate or three TF32
+    # products on the tensor cores, whichever is faster
+    (ms, b_by), how = min(
+        (bound(nbytes, fl, FP32_FLOPS), "float32 CUDA cores"),
+        (bound(nbytes, 3 * fl, TF32_TC_FLOPS), "3xTF32 tensor cores"))
     out["mamba2_ssd"] = dict(
-        x=[b, s, h, p], operations=fl,
+        x=[b, s, h, p], operations=fl, bound_note=how,
         ms=time_cuda(torch, lambda i: ssd.mamba2_ssd(*ssd_args,
                                                      chunk=SSD_CHUNK), 5),
         plain_ms=time_cuda(torch, lambda i: ssd.mamba2_ssd_torch(
@@ -1090,16 +1115,17 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
 
 
 def sass_counts(path):
-    """Tensor-core instructions in kernel E's two functions, counted in
-    `cuobjdump -sass` of the built library: HGMMA (`wgmma`) in the bf16
-    kernel, HMMA (`mma.sync`) in the f32 one. Raises if either is 0: the
+    """Tensor-core instructions counted in `cuobjdump -sass` of the built
+    library: HGMMA (`wgmma`) in kernel E's bf16 function, HMMA
+    (`mma.sync`) in its f32 one and in kernel F. Raises if any is 0: the
     kernel would not be on the tensor cores."""
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build._find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
     want = {"flash_attention_bf16_kernel": "HGMMA",
-            "flash_attention_f32_kernel": "HMMA"}
+            "flash_attention_f32_kernel": "HMMA",
+            "mamba2_ssd_kernel": "HMMA"}
     counts, fn = dict.fromkeys(want, 0), ""
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1113,7 +1139,8 @@ def sass_counts(path):
             raise AssertionError(f"no {want[name]} instruction in {name}: "
                                  f"it does not run on the tensor cores")
     return {"flash_bf16_HGMMA": counts["flash_attention_bf16_kernel"],
-            "flash_f32_HMMA": counts["flash_attention_f32_kernel"]}
+            "flash_f32_HMMA": counts["flash_attention_f32_kernel"],
+            "ssd_HMMA": counts["mamba2_ssd_kernel"]}
 
 
 # ---------------------------------------------------------------- main
@@ -1308,6 +1335,11 @@ def main() -> int:
          "serial_ms": tf["paged_attention"]["serial_ms"],
          "bound_ms": tf["paged_attention"]["bound_ms"],
          "bound_by": tf["paged_attention"]["bound_by"],
+         "bf16_max_abs_err": dec["max_abs_err"]["torch.bfloat16"],
+         "bf16_ms": tf["paged_attention"]["bf16_ms"],
+         "bf16_plain_ms": tf["paged_attention"]["bf16_plain_ms"],
+         "bf16_bound_ms": tf["paged_attention"]["bf16_bound_ms"],
+         "split_pages": rpa.SPLIT_PAGES,
          "library_ms": None,
          "library_note": "no PyTorch call attends over an int8 paged cache; "
                          "serial_ms is ops.paged_attention_serial"},
@@ -1358,7 +1390,10 @@ def main() -> int:
          "ms": tf["mamba2_ssd"]["ms"],
          "plain_ms": tf["mamba2_ssd"]["plain_ms"],
          "bound_ms": tf["mamba2_ssd"]["bound_ms"],
-         "bound_by": tf["mamba2_ssd"]["bound_by"], "library_ms": None,
+         "bound_by": tf["mamba2_ssd"]["bound_by"],
+         "bound_note": tf["mamba2_ssd"]["bound_note"],
+         "heads_per_block": ssd.HEADS_PER_BLOCK,
+         "sass_HMMA": sass["ssd_HMMA"], "library_ms": None,
          "library_note": "PyTorch has no SSD scan"}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

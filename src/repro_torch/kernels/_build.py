@@ -119,10 +119,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         getattr(lib, f"kv_quant_{dt}_launch").argtypes = [p] * 3 + [i] * 4 \
             + [p]
         getattr(lib, f"paged_attention_{dt}_launch").argtypes = \
-            [p] * 8 + [i] * 6 + [p]
+            [p] * 9 + [i] * 7 + [p]
         getattr(lib, f"flash_attention_{dt}_launch").argtypes = \
             [p] * 4 + [i] * 7 + [p]
-    lib.mamba2_ssd_f32_launch.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.mamba2_ssd_f32_launch.argtypes = [p] * 8 + [i] * 7 + [p]
     for name in ("kv_quant_f32", "kv_quant_bf16", "paged_attention_f32",
                  "paged_attention_bf16", "flash_attention_f32",
                  "flash_attention_bf16", "mamba2_ssd_f32"):

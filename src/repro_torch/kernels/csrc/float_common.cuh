@@ -1,8 +1,12 @@
 // Helpers shared by the float kernels (kv_quant, refresh_paged_attention,
 // flash_attention, mamba2_ssd): loads and stores that widen bfloat16 to
 // float32 and narrow it back through the cuda_bf16.h intrinsics (round to
-// nearest even, as torch's `.to(torch.bfloat16)`), and warp reductions.
+// nearest even, as torch's `.to(torch.bfloat16)`), and warp reductions;
+// for the paged-attention and SSD kernels also 16-byte `cp.async` copies
+// and 3xTF32 products on `mma.sync` (the f32 flash kernel keeps copies of
+// its own).
 #pragma once
+#include <stdint.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -59,6 +63,63 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
   return v;
+}
+
+// ------------------------------------------------- cp.async (16 bytes)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------ 3xTF32 on mma.sync.m16n8k8 (f32)
+// x rounded to the nearest TF32 value, ties away from zero: the result of
+// cvt.rna.tf32.f32 for finite x, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo, each rounded to the nearest TF32 value
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a·b in 3xTF32 (a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, the two small
+// products first); A split by the caller, B = (b0, b1) split here
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0,
+                                           float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+// the A fragment (a0..a3) split into TF32 hi and lo parts
+__device__ __forceinline__ void split_a(const float (&a)[4], uint32_t (&ah)[4],
+                                        uint32_t (&al)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
 }
 
 }  // namespace fk

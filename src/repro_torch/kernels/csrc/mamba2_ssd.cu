@@ -1,265 +1,395 @@
 // mamba2_ssd_kernel - Mamba2 SSD (state-space duality) chunked forward
-// (kernel F).
+// (kernel F), chunks in parallel on the tensor cores.
 //
 // Replaces the TPU kernel `_ssd_kernel` of the JAX package
 // (repro/kernels/mamba2_ssd.py). Plain version: `ref.mamba2_ssd` in
 // repro_torch/kernels/ref.py; wrapper: repro_torch/kernels/mamba2_ssd.py.
 //
 // x [B, S, H, P], dt [B, S, H], A [H], B/C [B, S, N], all float32 ->
-// y [B, S, H, P]. Per (batch, head), over its chunks of L in order, with
-// cum the within-chunk cumulative sum of dt * A[h] and total = cum[L-1]:
-//   y[i]  = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dtx_j
-//           + exp(cum_i) (C_i . h_p)                     (dtx = dt * x)
-//   h    <- h exp(total) + sum_l exp(total - cum_l) dtx_l (x) B_l
+// y [B, S, H, P]. Per (batch, chunk c of L tokens, head), with cum the
+// within-chunk cumulative sum of dt * A[h], total = cum[L-1], dtx = dt * x:
+//   y[i] = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dtx_j      (diagonal)
+//          + exp(cum_i) (C_i . h_{c-1})                      (carried state)
+//   S_c  = sum_l exp(total - cum_l) dtx_l (x) B_l          (chunk's own state)
+//   h_c  = h_{c-1} exp(total) + S_c                  (h_{-1} = 0, [P, N])
 //
-// Bound by operations. Blocks run in no order, so the TPU grid's
-// sequential chunk axis is a loop inside the block: one block of
-// SSD_THREADS threads owns one (batch, head) and walks its chunks, with
-// the chunk's B, C and dt * x and the state h [P, N] in shared memory
-// (dynamic: 2 L (N+4) + L (P+4) + P (N+4) + 32 (L+4) + 4 L floats,
-// 222,720 bytes at L = 128, N = 128, P = 64, set with
-// cudaFuncSetAttribute). The L x L weights are built SSD_TILE rows at a
-// time (only the columns j < i0 + SSD_TILE of a tile can be non-zero),
-// and the decay exp(cum_i - cum_j) is evaluated only where j <= i: above
-// the diagonal cum_i - cum_j > 0 can overflow and inf * 0 is NaN. Thread
-// (ty = tid / 16, tx = tid % 16) owns rows i0 + 2ty, +1 of a tile: the
-// weights of columns tx + 16k and the outputs of columns tx + 16e of y;
-// in the state update it owns h[4ty .. +3][4tx + 64f .. +3].
+// Bound by operations (`mamba2_ssd.operations`: ~33 GFLOP at mamba2-130m
+// widths against 0.44 GB moved). The plain version's decomposition, on the
+// H100's tensor cores:
+//
+// * Chunks in parallel. A block owns one (batch, chunk) and a group of
+//   `hpb` heads; B and C are shared by the heads (one group), so C.B^T -
+//   the largest product - is computed once a block, on its lower
+//   triangle (warp w: rows 16w..16w+15, columns below 16(w+1)), and kept
+//   in shared memory in fragment order. Then, head by head: the chunk's
+//   state S_c, W = C.B^T o exp(cum_i - cum_j) o [j <= i] (the decay
+//   evaluated only where j <= i: above the diagonal it overflows, and
+//   inf * 0 is NaN), y = W.dtx, and the carried term, taken transposed as
+//   h_{c-1}.C^T so that h is the A operand, held in registers.
+// * The state is carried by a decoupled look-back. Blocks take a ticket
+//   from a counter, chunk-major, so a block waits only on blocks that
+//   started before it: the block of chunk c waits for flag[b][h] >= c,
+//   reads h_{c-1} (from L2, past L1), writes h_c = h_{c-1} exp(total) +
+//   S_c into a ring of two states per (batch, head) and raises the flag
+//   to c + 1 (a barrier, then one thread's fence and release store, as a
+//   grid barrier does) - before its y products, so the chain waits on
+//   loads, not on math. Every read of h_{c-1} (the update and the
+//   registers for h.C^T) precedes the flag, and chunk c + 1 writes slot
+//   (c - 1) & 1 only after it, so two slots suffice.
+// * Every product is 3xTF32 on mma.sync.m16n8k8 (a_lo.b_hi + a_hi.b_lo +
+//   a_hi.b_hi, each part rounded to the nearest TF32 value), as the f32
+//   flash kernel does: float32 accuracy at the tensor-core rate. For
+//   W.dtx the C fragment of C.B^T is used as the A fragment with the k
+//   index permuted (slot t is column 2t, slot t + 4 column 2t + 1) and
+//   dtx's B fragment read in the same order, so no value crosses lanes.
+//   dt multiplies x where x is read, so x is copied as it is.
+// * One block of 8 warps an SM: C [L][N+4], B [L][N+8] and x [L][P+4]
+//   (after W.dtx it stages y for coalesced stores), strides chosen so the
+//   fragment reads hit 32 banks, C.B^T's fragments, and the block's dt:
+//   214,528 bytes of dynamic shared memory at 8 heads a block. C.B^T in
+//   registers instead (64 a thread) left ptxas no room to overlap the
+//   products: 1.59 against 1.36 ms (benchmarks_torch/ssd_variants.py).
+// * cum is a warp scan; decays and exp(cum) are taken once a head.
+#include <cstdint>
+
 #include "float_common.cuh"
 
 namespace {
 
 constexpr int SSD_THREADS = 256;
-constexpr int SSD_TILE = 32;
+constexpr int SSD_MAXL = 128, SSD_MAXP = 64, SSD_MAXN = 128;
+constexpr int CST = SSD_MAXN + 4;  // C rows: fragment reads at 4g + t
+constexpr int BST = SSD_MAXN + 8;  // B rows: S's B fragments at 8t + g
+constexpr int XST = SSD_MAXP + 4;  // x rows: W.dtx's B fragments at 8t + g
+constexpr int CB_TILES = 72;       // sum over warps w of 2(w + 1) n-tiles
+constexpr int SSD_MAX_HPB = 32;
+// C, B, x, C.B^T, cum, ecum, dte; then dt of the block's heads [L][hpb]
+constexpr int SSD_SMEM_FLOATS = SSD_MAXL * (CST + BST + XST) +
+                                CB_TILES * 128 + 3 * SSD_MAXL;  // 210,432 B
 
-int smem_floats(int L, int P, int N) {
-  return 2 * L * (N + 4) + L * (P + 4) + P * (N + 4) + SSD_TILE * (L + 4) +
-         4 * L;
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__global__ void __launch_bounds__(SSD_THREADS) mamba2_ssd_kernel(
+__global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y, int S, int H,
-    int P, int N, int L) {
-  extern __shared__ float4 smem4[];
-  const int NS = N + 4, PS = P + 4, WS = L + 4;
-  float* Bs = reinterpret_cast<float*>(smem4);  // [L][NS]
-  float* Cs = Bs + L * NS;                      // [L][NS]
-  float* Xs = Cs + L * NS;                      // [L][PS]   dt * x
-  float* Hs = Xs + L * PS;                      // [P][NS]   the state
-  float* Ws = Hs + P * NS;                      // [SSD_TILE][WS]
-  float* dts = Ws + SSD_TILE * WS;              // [L]
-  float* cum = dts + L;                         // [L]
-  float* ecum = cum + L;                        // [L] exp(cum)
-  float* dend = ecum + L;                       // [L] exp(total - cum)
+    const float* __restrict__ Cm, float* __restrict__ y, float* ring,
+    int* flags, int Bsz, int S, int H, int P, int N, int L, int hpb) {
+  extern __shared__ __align__(16) float smem[];
+  float* Cs = smem;                 // [L][CST]
+  float* Bs = Cs + SSD_MAXL * CST;  // [L][BST]
+  float* X = Bs + SSD_MAXL * BST;   // [L][XST]: x of the head, then y
+  float* CBf = X + SSD_MAXL * XST;  // C.B^T fragments: [tile][lane][4]
+  float* cum = CBf + CB_TILES * 128;  // [L]
+  float* ecum = cum + SSD_MAXL;       // [L] exp(cum), 0 past L
+  float* dte = ecum + SSD_MAXL;       // [L] exp(total - cum), 0 past L
+  float* dtb = dte + SSD_MAXL;        // [hpb][L] dt of the block's heads
+  __shared__ int s_ticket;
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float a = A[h];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nc = S / L, ngrp = (H + hpb - 1) / hpb;
+  if (tid == 0) s_ticket = atomicAdd(flags, 1);
+  for (int i = tid * 4; i < SSD_SMEM_FLOATS + SSD_MAXL * hpb;
+       i += SSD_THREADS * 4)
+    *reinterpret_cast<float4*>(smem + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // chunk-major tickets: every block this one waits on started before it
+  const int ticket = s_ticket;
+  const int c = ticket / (Bsz * ngrp);
+  const int b = (ticket - c * Bsz * ngrp) / ngrp;
+  const int h0 = (ticket - c * Bsz * ngrp - b * ngrp) * hpb;
+  const int hn = min(hpb, H - h0);
+  const long long row0 = (long long)b * S + (long long)c * L;  // token
   const int n4 = N / 4, p4 = P / 4;
+  const int LK = (L + 7) / 8;  // k steps over L
 
-  for (int idx = tid; idx < P * NS; idx += SSD_THREADS) Hs[idx] = 0.f;
+  for (int i = tid; i < L * n4; i += SSD_THREADS) {
+    const int l = i / n4, cc = (i - l * n4) * 4;
+    fk::cp_async16(Cs + l * CST + cc, Cm + (row0 + l) * N + cc);
+    fk::cp_async16(Bs + l * BST + cc, Bm + (row0 + l) * N + cc);
+  }
+  fk::cp_commit();
+  for (int i = tid; i < L * hn; i += SSD_THREADS) {
+    const int l = i / hn, k = i - l * hn;
+    dtb[k * SSD_MAXL + l] = dt[(row0 + l) * H + h0 + k];
+  }
+  fk::cp_wait<0>();
+  __syncthreads();
 
-  for (int c = 0; c < S / L; ++c) {
-    const long long row0 = (long long)b * S + (long long)c * L;
-    for (int idx = tid; idx < L * n4; idx += SSD_THREADS) {
-      const int l = idx / n4, cc = (idx - l * n4) * 4;
-      const long long g = (row0 + l) * N + cc;
-      fk::store4(Bs + l * NS + cc, fk::load4(Bm + g));
-      fk::store4(Cs + l * NS + cc, fk::load4(Cm + g));
-    }
-    for (int l = tid; l < L; l += SSD_THREADS)
-      dts[l] = dt[(row0 + l) * H + h];
-    __syncthreads();
-    if (tid == 0) {  // within-chunk cumulative sum of dt * a, in order
-      float run = 0.f;
-      for (int l = 0; l < L; ++l) {
-        run += __fmul_rn(dts[l], a);
-        cum[l] = run;
+  // C.B^T once for the block: warp w, rows 16w + g (+8), n-tiles < 2(w+1),
+  // kept in shared memory in fragment order (tile, lane, 4 values)
+  const int mi = warp;
+  float* cbw = CBf + mi * (mi + 1) * 128 + 4 * lane;
+  if (16 * mi < L) {
+    float cb[16][4];
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      cb[k][0] = cb[k][1] = cb[k][2] = cb[k][3] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < (N + 7) / 8; ++ks) {
+      const float* cr = Cs + (16 * mi + g) * CST + 8 * ks + t;
+      const float a[4] = {cr[0], cr[8 * CST], cr[4], cr[8 * CST + 4]};
+      uint32_t ah[4], al[4];
+      fk::split_a(a, ah, al);
+#pragma unroll
+      for (int nq = 0; nq < 4; ++nq) {
+        if (2 * nq < mi + 1) {  // n-tiles 4nq .. 4nq + 3 reach the diagonal
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* br = Bs + (8 * (4 * nq + e) + g) * BST + 8 * ks + t;
+            fk::mma_3xtf32(cb[4 * nq + e], ah, al, br[0], br[4]);
+          }
+        }
       }
     }
-    for (int idx = tid; idx < L * p4; idx += SSD_THREADS) {
-      const int l = idx / p4, pp = (idx - l * p4) * 4;
-      float4 v = fk::load4(x + ((row0 + l) * H + h) * P + pp);
-      const float d = dts[l];
-      v.x *= d;
-      v.y *= d;
-      v.z *= d;
-      v.w *= d;
-      fk::store4(Xs + l * PS + pp, v);
+#pragma unroll
+    for (int kt = 0; kt < 16; ++kt)
+      if (kt < 2 * (mi + 1))
+        *reinterpret_cast<float4*>(cbw + kt * 128) =
+            make_float4(cb[kt][0], cb[kt][1], cb[kt][2], cb[kt][3]);
+  }
+
+  // S_c and C.h^T tiles: p rows 16mp + g (+8); S's n / C.h^T's i half nh
+  const int mp = warp & 3, nh = warp >> 2;
+  const bool p_on = 16 * mp < P;
+  const bool first = c == 0, last = c == nc - 1;
+
+#pragma unroll 1
+  for (int hi = 0; hi < hn; ++hi) {
+    const int h = h0 + hi;
+    const float a = A[h];
+    for (int i = tid; i < L * p4; i += SSD_THREADS) {
+      const int l = i / p4, pp = (i - l * p4) * 4;
+      fk::cp_async16(X + l * XST + pp, x + ((row0 + l) * H + h) * P + pp);
+    }
+    fk::cp_commit();
+    const float* dts = dtb + hi * SSD_MAXL;
+    if (warp == 0) {  // cum: a warp scan, four steps a lane
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = 4 * lane + e;
+        run += l < L ? __fmul_rn(dts[l], a) : 0.f;
+        v[e] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float n = __shfl_up_sync(fk::FULL_MASK, incl, off);
+        if (lane >= off) incl += n;
+      }
+      float excl = __shfl_up_sync(fk::FULL_MASK, incl, 1);
+      if (lane == 0) excl = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * lane + e < L) cum[4 * lane + e] = excl + v[e];
     }
     __syncthreads();
     const float total = cum[L - 1];
     for (int l = tid; l < L; l += SSD_THREADS) {
       ecum[l] = expf(cum[l]);
-      dend[l] = expf(total - cum[l]);
+      dte[l] = expf(total - cum[l]);
+    }
+    fk::cp_wait<0>();
+    __syncthreads();  // x of head h and the decays are in shared memory
+
+    // S_c[p][n] = sum_l (dt_l x_l dte_l)[p] B_l[n]: n-tiles 8nh .. 8nh + 7
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if (p_on) {
+#pragma unroll 2
+      for (int ks = 0; ks < LK; ++ks) {
+        const int l0 = 8 * ks + t, l1 = l0 + 4;
+        const float* x0 = X + l0 * XST + 16 * mp + g;
+        const float* x1 = X + l1 * XST + 16 * mp + g;
+        const float d0 = dts[l0], e0 = dte[l0], d1 = dts[l1], e1 = dte[l1];
+        const float a4[4] = {x0[0] * d0 * e0, x0[8] * d0 * e0, x1[0] * d1 * e1,
+                             x1[8] * d1 * e1};
+        uint32_t ah[4], al[4];
+        fk::split_a(a4, ah, al);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int nt = 8 * nh + j;
+          fk::mma_3xtf32(s[j], ah, al, Bs[l0 * BST + 8 * nt + g],
+                         Bs[l1 * BST + 8 * nt + g]);
+        }
+      }
+    }
+
+    // the carried state: wait for h_{c-1}, publish h_c
+    const float etot = expf(total);
+    const size_t hstride = (size_t)P * N;
+    const size_t slot0 = ((size_t)b * H + h) * 2;
+    int* flag = flags + 1 + b * H + h;
+    // h_{c-1}[16mp + g (+8)][8ks + t (+4)]: the A fragments of h.C^T
+    float ha[16][4];
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks)
+      ha[ks][0] = ha[ks][1] = ha[ks][2] = ha[ks][3] = 0.f;
+    if (!first) {
+      if (tid == 0)
+        while (ld_acquire(flag) < c) __nanosleep(64);
+      __syncthreads();
+      const float* hp = ring + (slot0 + ((c - 1) & 1)) * hstride;
+      if (p_on) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = 16 * mp + g + 8 * r;
+          if (p < P) {
+            const float* hr = hp + p * N;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int n = 8 * (8 * nh + j) + 2 * t;
+              if (n < N) {
+                const float2 hv = __ldcg(reinterpret_cast<const float2*>(hr + n));
+                s[j][2 * r] = fmaf(hv.x, etot, s[j][2 * r]);
+                s[j][2 * r + 1] = fmaf(hv.y, etot, s[j][2 * r + 1]);
+              }
+            }
+#pragma unroll
+            for (int ks = 0; ks < 16; ++ks) {
+              const int n = 8 * ks + t;
+              if (n < N) ha[ks][r] = __ldcg(hr + n);
+              if (n + 4 < N) ha[ks][2 + r] = __ldcg(hr + n + 4);
+            }
+          }
+        }
+      }
+    }
+    if (!last && p_on) {
+      float* hp = ring + (slot0 + (c & 1)) * hstride;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = 8 * (8 * nh + j) + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = 16 * mp + g + 8 * r;
+          if (n < N && p < P)
+            __stcg(reinterpret_cast<float2*>(hp + p * N + n),
+                   make_float2(s[j][2 * r], s[j][2 * r + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    if (!last && tid == 0) {
+      __threadfence();  // the block's reads of h_{c-1} and writes of h_c
+      st_release(flag, c + 1);
+    }
+
+    // y = W.dtx, W = C.B^T o exp(cum_i - cum_j) o [j <= i], rows 16mi..
+    float yv[8][4];
+#pragma unroll
+    for (int pt = 0; pt < 8; ++pt)
+      yv[pt][0] = yv[pt][1] = yv[pt][2] = yv[pt][3] = 0.f;
+    if (16 * mi < L) {
+      const int i0 = 16 * mi + g, i1 = i0 + 8;
+      const float ci0 = cum[i0], ci1 = cum[i1];
+#pragma unroll 2
+      for (int kt = 0; kt < 2 * (mi + 1); ++kt) {
+        const int j0 = 8 * kt + 2 * t, j1 = j0 + 1;
+        const float cj0 = cum[j0], cj1 = cum[j1];
+        const float d0 = dts[j0], d1 = dts[j1];
+        const float4 cb = *reinterpret_cast<const float4*>(cbw + kt * 128);
+        // A slot t <-> column 2t, slot t + 4 <-> column 2t + 1
+        const float w[4] = {j0 <= i0 && i0 < L ? cb.x * expf(ci0 - cj0) : 0.f,
+                            j0 <= i1 && i1 < L ? cb.z * expf(ci1 - cj0) : 0.f,
+                            j1 <= i0 && i0 < L ? cb.y * expf(ci0 - cj1) : 0.f,
+                            j1 <= i1 && i1 < L ? cb.w * expf(ci1 - cj1) : 0.f};
+        uint32_t ah[4], al[4];
+        fk::split_a(w, ah, al);
+#pragma unroll
+        for (int pt = 0; pt < 8; ++pt)
+          fk::mma_3xtf32(yv[pt], ah, al, X[j0 * XST + 8 * pt + g] * d0,
+                         X[j1 * XST + 8 * pt + g] * d1);
+      }
+    }
+    __syncthreads();  // x is read: X stages y from here on
+    if (16 * mi < L) {
+#pragma unroll
+      for (int pt = 0; pt < 8; ++pt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 16 * mi + g + 8 * r, p = 8 * pt + 2 * t;
+          if (i < L && p < P)
+            *reinterpret_cast<float2*>(X + i * XST + p) =
+                make_float2(yv[pt][2 * r], yv[pt][2 * r + 1]);
+        }
+      }
     }
     __syncthreads();
 
-    for (int i0 = 0; i0 < L; i0 += SSD_TILE) {
-      const int jmax = min(i0 + SSD_TILE, L);
-      const int kcount = (jmax + 15) / 16;
-      const int ia = i0 + 2 * ty, ib = ia + 1;
-      // weights W[i][j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i
-      float w[2][8];
+    // y^T += (h_{c-1} . C^T) o exp(cum_i): p rows 16mp.., i-tiles 8nh..
+    if (!first && p_on) {
+      float yo[8][4];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) w[0][k] = w[1][k] = 0.f;
-      if (ia < L) {
-        for (int nn = 0; nn < n4; ++nn) {
-          const float4 c0 =
-              *reinterpret_cast<const float4*>(Cs + ia * NS + 4 * nn);
-          const float4 c1 =
-              ib < L ? *reinterpret_cast<const float4*>(Cs + ib * NS + 4 * nn)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int it = 0; it < 8; ++it)
+        yo[it][0] = yo[it][1] = yo[it][2] = yo[it][3] = 0.f;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const int j = tx + 16 * k;
-            if (k < kcount && j < jmax) {
-              const float4 bv =
-                  *reinterpret_cast<const float4*>(Bs + j * NS + 4 * nn);
-              w[0][k] += dot4(c0, bv);
-              w[1][k] += dot4(c1, bv);
-            }
-          }
+      for (int ks = 0; ks < 16; ++ks) {
+        uint32_t ah[4], al[4];
+        fk::split_a(ha[ks], ah, al);
+#pragma unroll
+        for (int it = 0; it < 8; ++it) {
+          const float* cr = Cs + (8 * (8 * nh + it) + g) * CST + 8 * ks + t;
+          fk::mma_3xtf32(yo[it], ah, al, cr[0], cr[4]);
         }
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = ia + r;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int j = tx + 16 * k;
-          if (k < kcount && j < jmax) {
-            float val = 0.f;
-            if (i < L && j <= i) val = w[r][k] * expf(cum[i] - cum[j]);
-            Ws[(2 * ty + r) * WS + j] = val;
-          }
-        }
-      }
-      __syncthreads();
-
-      // y rows ia, ib at columns p = tx + 16e
-      float y0[4] = {0.f, 0.f, 0.f, 0.f}, y1[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int j = 0; j < jmax; ++j) {
-        const float wa = Ws[(2 * ty) * WS + j];
-        const float wb = Ws[(2 * ty + 1) * WS + j];
+      for (int it = 0; it < 8; ++it) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int p = tx + 16 * e;
-          if (p < P) {
-            const float xv = Xs[j * PS + p];
-            y0[e] += wa * xv;
-            y1[e] += wb * xv;
-          }
-        }
-      }
-      float z0[4] = {0.f, 0.f, 0.f, 0.f}, z1[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ia < L) {
-        for (int nn = 0; nn < n4; ++nn) {
-          const float4 c0 =
-              *reinterpret_cast<const float4*>(Cs + ia * NS + 4 * nn);
-          const float4 c1 =
-              ib < L ? *reinterpret_cast<const float4*>(Cs + ib * NS + 4 * nn)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int p = tx + 16 * e;
-            if (p < P) {
-              const float4 hv =
-                  *reinterpret_cast<const float4*>(Hs + p * NS + 4 * nn);
-              z0[e] += dot4(c0, hv);
-              z1[e] += dot4(c1, hv);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = tx + 16 * e;
-        if (p >= P) continue;
-        if (ia < L)
-          y[((row0 + ia) * H + h) * P + p] = y0[e] + ecum[ia] * z0[e];
-        if (ib < L)
-          y[((row0 + ib) * H + h) * P + p] = y1[e] + ecum[ib] * z1[e];
-      }
-      __syncthreads();  // the weight tile is rewritten by the next tile
-    }
-
-    // h = h exp(total) + sum_l (dtx_l exp(total - cum_l)) (x) B_l
-    const float etot = expf(total);
-    const int pb = 4 * ty;
-    if (pb < P) {
-      float u[4][2][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int f = 0; f < 2; ++f)
-#pragma unroll
-          for (int g = 0; g < 4; ++g) u[e][f][g] = 0.f;
-      for (int l = 0; l < L; ++l) {
-        const float de = dend[l];
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + l * PS + pb);
-        const float xs[4] = {xv.x * de, xv.y * de, xv.z * de, xv.w * de};
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          const int nb = 4 * tx + 64 * f;
-          if (nb < N) {
-            const float4 bv =
-                *reinterpret_cast<const float4*>(Bs + l * NS + nb);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              u[e][f][0] += xs[e] * bv.x;
-              u[e][f][1] += xs[e] * bv.y;
-              u[e][f][2] += xs[e] * bv.z;
-              u[e][f][3] += xs[e] * bv.w;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          const int nb = 4 * tx + 64 * f;
-          if (nb < N) {
-            float* hp = Hs + (pb + e) * NS + nb;
-            float4 hv = *reinterpret_cast<float4*>(hp);
-            hv.x = hv.x * etot + u[e][f][0];
-            hv.y = hv.y * etot + u[e][f][1];
-            hv.z = hv.z * etot + u[e][f][2];
-            hv.w = hv.w * etot + u[e][f][3];
-            *reinterpret_cast<float4*>(hp) = hv;
-          }
+          const int p = 16 * mp + g + 8 * (e >> 1);
+          const int i = 8 * (8 * nh + it) + 2 * t + (e & 1);
+          if (i < L && p < P) X[i * XST + p] += ecum[i] * yo[it][e];
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites B, C, dt * x
+    __syncthreads();
+    for (int i = tid; i < L * p4; i += SSD_THREADS) {
+      const int l = i / p4, pp = (i - l * p4) * 4;
+      *reinterpret_cast<float4*>(y + ((row0 + l) * H + h) * P + pp) =
+          *reinterpret_cast<const float4*>(X + l * XST + pp);
+    }
+    __syncthreads();  // y is read out of X before the next head's copies
   }
 }
 
 }  // namespace
 
+// ring: [B, H, 2, P, N] float32 scratch; flags: 1 + B*H int32, zeroed by
+// the caller before each launch (the ticket counter, then one flag a
+// (batch, head)); hpb: heads a block.
 extern "C" int mamba2_ssd_f32_launch(const void* x, const void* dt,
                                      const void* A, const void* Bm,
-                                     const void* Cm, void* y, int Bsz, int S,
-                                     int H, int P, int N, int L,
+                                     const void* Cm, void* y, void* ring,
+                                     void* flags, int Bsz, int S, int H,
+                                     int P, int N, int L, int hpb,
                                      void* stream) {
   if (Bsz == 0 || H == 0 || S == 0) return 0;
-  if (L <= 0 || S % L != 0 || L > 128 || P > 64 || N > 128 || P % 4 != 0 ||
-      N % 4 != 0)
+  if (L <= 0 || S % L != 0 || L > SSD_MAXL || P > SSD_MAXP ||
+      N > SSD_MAXN || P % 4 != 0 || N % 4 != 0 || hpb < 1 ||
+      hpb > SSD_MAX_HPB)
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_floats(L, P, N) * (int)sizeof(float);
+  const int smem = (SSD_SMEM_FLOATS + SSD_MAXL * hpb) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       mamba2_ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  mamba2_ssd_kernel<<<Bsz * H, SSD_THREADS, smem, (cudaStream_t)stream>>>(
+  const int blocks = Bsz * (S / L) * ((H + hpb - 1) / hpb);
+  mamba2_ssd_kernel<<<blocks, SSD_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      (const float*)Cm, (float*)y, S, H, P, N, L);
+      (const float*)Cm, (float*)y, (float*)ring, (int*)flags, Bsz, S, H, P,
+      N, L, hpb);
   return (int)cudaGetLastError();
 }

@@ -23,19 +23,20 @@ Beside the kernel, as beside every kernel of this package:
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
-What bounds it on an H100: bytes. A decode step reads each valid page's
-int8 K and V once (plus two scales) and does about 4 operations a byte,
-far under the card's ~295 a byte. The design keeps the fused property of
-the TPU kernel, which is the point of it: int8 is loaded and dequantized
-in registers inside the page loop and no dequantized cache is written to
-device memory (`ops.paged_attention_serial` is the unfused baseline). One
-block serves one (sequence, kv head) and up to 8 of its query heads (a
-wider group, as Qwen3-MoE's 16, takes more blocks); its warps take the sequence's pages in turn, each with its own online
-softmax, and are merged at the end, so several pages' loads are in
-flight at once. Within a page, lane r computes row r's scores for all
-the group's query heads by itself (16 int8 keys a load, q read from
-shared memory), so no score waits on a chain of warp shuffles; for P·V
-each lane owns four dims and reads V as coalesced lines.
+What bounds it on an H100: bytes. A decode step reads each valid row's
+int8 K and V once (plus two scales a page) and does about 4 operations a
+byte, far under the card's ~295 a byte. The design keeps the fused
+property of the TPU kernel, which is the point of it: int8 is loaded and
+dequantized inside the page loop and no dequantized cache is written to
+device memory (`ops.paged_attention_serial` is the unfused baseline).
+A decode step has few (sequence, kv head) pairs, so a sequence's pages
+are split over blocks, `SPLIT_PAGES` a block (flash-decoding): each
+block stages its pages' K and V rows for its kv head through a
+shared-memory ring filled by `cp.async` and keeps an online softmax for
+up to 8 of the kv head's query heads (a wider group, as Qwen3-MoE's 16,
+takes more blocks); a second launch merges the splits' partial states.
+One call of the wrapper counts as one launch; it allocates the partial
+states' scratch.
 """
 from __future__ import annotations
 
@@ -48,6 +49,9 @@ LAUNCHES = 0
 
 #: the widest head the kernel takes
 MAX_D = 128
+
+#: pages of a sequence a block takes
+SPLIT_PAGES = 8
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 NEG_INF = -1e30
@@ -122,12 +126,16 @@ def refresh_paged_attention(q, k_pages, v_pages, k_scale, v_scale,
     out = torch.empty_like(q)
     if b * h * d == 0:
         return out
+    maxp = page_table.shape[1]
+    nsplit = max(1, -(-maxp // SPLIT_PAGES))
+    ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=dev)
     with torch.cuda.device(dev):
         _build.launch(f"paged_attention_{_DTYPES[q.dtype]}_launch",
                       q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       k_scale.data_ptr(), v_scale.data_ptr(),
                       page_table.data_ptr(), seq_lens.data_ptr(),
-                      out.data_ptr(), b, h, hkv, d, t, page_table.shape[1],
-                      torch.cuda.current_stream().cuda_stream)
+                      out.data_ptr(), ws.data_ptr(), b, h, hkv, d, t, maxp,
+                      SPLIT_PAGES, torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out

@@ -307,13 +307,14 @@ def test_flash_operations_count_the_unmasked_pairs(sq, skv, causal):
 
 @pytest.mark.parametrize("s,chunk", [(256, 128), (64, 16), (32, 64)])
 def test_ssd_operations_count_the_lower_triangle(s, chunk):
-    """Per chunk: C·Bᵀ and the weighted dt·x over the pairs j ≤ i only,
-    then C·hᵀ and the state update, L·P·N multiply-adds each."""
+    """Per (batch, chunk): C·Bᵀ over the pairs j ≤ i once - B and C are
+    shared by the heads - then per head the weighted dt·x over the same
+    pairs, C·hᵀ and the state update, L·P·N multiply-adds each."""
     b, h, p, n = 2, 3, 8, 16
     l = min(chunk, s)
     pairs = int(np.tril(np.ones((l, l), bool)).sum())
-    macs = (s // l) * (pairs * (n + p) + 2 * l * p * n)
-    assert tssd.operations(b, s, h, p, n, chunk) == 2 * b * h * macs
+    macs = (s // l) * (pairs * n + h * (pairs * p + 2 * l * p * n))
+    assert tssd.operations(b, s, h, p, n, chunk) == 2 * b * macs
 
 
 # ----------------------------------------------------------------- wrappers
