@@ -37,7 +37,10 @@ and prints one JSON object a line:
               chunks, P and N not multiples of 16; both input types)
               at the bars `FLASH_TOL`, `PAGED_TOL`, `SSD_TOL` (the
               reference's in float32; one rounding of the output in
-              bfloat16) and kv_quant's (scales rtol 1e-4, int8 within 1);
+              bfloat16); kv_quant exactly, at `KV_QUANT_SHAPES` (model
+              widths, rows of 24, 12 and 10 bytes, a slice past the
+              register tile) on finite pages and on pages with a NaN
+              slice and an inf slice;
   4. paper    the main path at the paper's grid: figure-3 policies x the
               closed figure scenarios x 3 densities, reqs=2000, seeds 1
               and 2, through `sweep(spec)` (default backend: the
@@ -94,8 +97,8 @@ version and its bound (E's f32 bound and F's are the lesser of the CUDA
 cores' float32 rate and three TF32 products at the TF32 tensor-core
 rate, since both run 3xTF32; E beside `scaled_dot_product_attention`, C
 beside `ops.paged_attention_serial` and with q in float32 and in
-bfloat16); the megakernels are held against
-their plain versions once more at that shape, and also at the small
+bfloat16; D on float32 and on bfloat16 pages); the megakernels are held
+against their plain versions once more at that shape, and also at the small
 grids' shapes (A1 at the paper grid, seed 1; A2 at the open reference
 grid), each with its launch layout (lanes a cell, cells a block,
 registers, shared memory); the arbiter kernel is also timed at the paper
@@ -727,7 +730,14 @@ SSD_TOL = (5e-4, 2e-3)
 
 # The float kernels' edge shapes, checked in the kernels phase and by the
 # `gpu` tests (tests/test_torch_gpu.py reads these tables).
-KV_QUANT_SHAPES = ((3, 8, 2, 16), (6, 64, 8, 128), (2, 5, 1, 12))
+# kv_quant: (p, t, h, d). Head dims 128, 112 and 64 (every model width of
+# the repo, at the paged cache's 64-token page); rows of 24 bytes in bf16
+# (8-byte vectors), of 24 / 12 bytes (8 / 4) and 20 / 10 bytes (4 / 2); a
+# slice of 128 x 256 values, larger than the register tile, walked in 4
+# tiles in f32 and 2 in bf16.
+KV_QUANT_SHAPES = ((3, 8, 2, 16), (6, 64, 8, 128), (2, 5, 1, 12),
+                   (2, 64, 2, 112), (2, 64, 2, 64), (2, 128, 1, 256),
+                   (2, 3, 2, 6), (2, 4, 3, 5))
 PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
     (4, 10, 2, 16, 8, 4, (0, 9, 32, 1)),   # group 5, a zero length
     (2, 8, 8, 32, 16, 2, (17, 32)),        # group 1
@@ -785,27 +795,50 @@ def flash_inputs(torch, g, bh, sq, skv, d, q_scale):
 
 
 def check_kv_quant(torch, pages, q8, sc, what):
-    """Kernel D's result `(q8, sc)` for `pages` against its plain version
-    at the reference's bars; returns (max int8 difference, exactly
-    equal)."""
+    """Kernel D's result `(q8, sc)` for `pages` against its plain version,
+    exactly. The scales are equal bit for bit, and NaN where the plain
+    version's are NaN (a NaN's payload is not compared). The int8 values
+    are equal, and within the round trip `|x - q scale| <= 0.51 scale`,
+    wherever `x / scale` is finite; where it is not (every value under a
+    NaN scale, +-inf under an inf one) they are not compared, since the
+    plain version's int8 of a NaN is undefined, and the kernel must store
+    0 there (the clip does not turn a NaN into -127). Raises otherwise;
+    returns the largest int8 difference where compared (0)."""
     from repro_torch.kernels import kv_quant as kq
     q8r, scr = kq.kv_quant_torch(pages)
-    close(torch, sc, scr, 0.0, 1e-4, f"{what}: scales")
-    diff = int((q8.int() - q8r.int()).abs().max())
-    deq = q8.float() * sc[:, None, :, None]
-    bound = sc[:, None, :, None] * 0.51 + 1e-6
-    if diff > 1 or not bool(((deq - pages.float()).abs() <= bound).all()):
-        raise AssertionError(f"{what}: int8 differs by {diff} or the round "
-                             f"trip exceeds 0.51 scale")
-    return diff, bool(torch.equal(q8, q8r) and torch.equal(sc, scr))
+    nan = torch.isnan(scr)
+    if not (torch.equal(torch.isnan(sc), nan) and torch.equal(
+            sc[~nan].view(torch.int32), scr[~nan].view(torch.int32))):
+        raise AssertionError(f"{what}: scales differ from the plain "
+                             f"version's")
+    s = sc[:, None, :, None]
+    x = pages.float()
+    fin = torch.isfinite(x / s)
+    diff = int((q8.int() - q8r.int())[fin].abs().max()) if bool(
+        fin.any()) else 0
+    if diff:
+        raise AssertionError(f"{what}: int8 differs by {diff}")
+    if bool(q8[~fin].any()):
+        raise AssertionError(f"{what}: a value whose x / scale is not "
+                             f"finite is stored as non-zero")
+    if bool(((q8.float() * s - x).abs() > s * 0.51 + 1e-6)[fin].any()):
+        raise AssertionError(f"{what}: the round trip exceeds 0.51 scale")
+    return diff
 
 
-def kv_quant_input(torch, g, shape, dtype):
-    """Random pages of `shape` with an all-zero head and values on the
-    rounding boundaries, in `dtype`."""
+def kv_quant_input(torch, g, shape, dtype, nonfinite=False):
+    """Random pages of `shape` in `dtype`, with an all-zero head and
+    values on the rounding boundaries; or, with `nonfinite`, with +inf and
+    -inf in slice (0, 0) (an inf scale: its finite values quantize to 0)
+    and a NaN in the last slice (a NaN scale). Needs two pages and d >= 4
+    values a row."""
     x = torch.randn(shape, generator=g, device="cuda") * 3
-    x[0, :, 0] = 0.0                                    # an all-zero head
-    x[1, 0, 0, :4] = torch.tensor([63.5, -63.5, 0.5, 127.0])
+    if nonfinite:
+        x[0, 0, 0, 0], x[0, -1, 0, -1] = float("inf"), float("-inf")
+        x[-1, -1, -1, 0] = float("nan")
+    else:
+        x[0, :, 0] = 0.0                                # an all-zero head
+        x[1, 0, 0, :4] = torch.tensor([63.5, -63.5, 0.5, 127.0])
     return x.to(dtype)
 
 
@@ -841,14 +874,15 @@ def check_float_kernels(torch, np):
     from repro_torch.kernels import refresh_paged_attention as rpa
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {}
-    diff, exact = 0, True
+    diff = 0
     for dtype in (torch.float32, torch.bfloat16):
         for shape in KV_QUANT_SHAPES:
-            x = kv_quant_input(torch, g, shape, dtype)
-            d_, e_ = check_kv_quant(torch, x, *kq.kv_quant(x),
-                                    f"kv_quant {dtype} {shape}")
-            diff, exact = max(diff, d_), exact and e_
-    out["kv_quant"] = {"max_abs_err_int8": diff, "exact": exact}
+            for nonfinite in (False, True):
+                x = kv_quant_input(torch, g, shape, dtype, nonfinite)
+                diff = max(diff, check_kv_quant(
+                    torch, x, *kq.kv_quant(x),
+                    f"kv_quant {dtype} {shape} nonfinite={nonfinite}"))
+    out["kv_quant"] = {"max_abs_err_int8": diff, "exact": diff == 0}
     errs = {}
     for (b, h, hkv, d, t, maxp, lens) in PAGED_CASES:
         q, *cache = paged_case(torch, np, b, h, hkv, d, t, maxp, lens,
@@ -932,9 +966,8 @@ def paged_decode_path(torch, np):
             for dt in (torch.float32, torch.bfloat16)}
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    (kd, ke), (vd, ve) = (check_kv_quant(torch, *a, f"decode kv_quant {n}")
-                          for n, a in (("K", (kp, k8, ks)), ("V", (vp, v8, vs))))
-    kq_diff, kq_exact = max(kd, vd), ke and ve
+    kq_diff = max(check_kv_quant(torch, *a, f"decode kv_quant {n}")
+                  for n, a in (("K", (kp, k8, ks)), ("V", (vp, v8, vs))))
     cache = (k8, v8, ks, vs, table, seq_lens)
     errs = {}
     for dt, got in outs.items():
@@ -950,7 +983,7 @@ def paged_decode_path(torch, np):
         pages=list(shape), seq_lens=lens.tolist(), max_pages=DECODE_MAXP,
         valid_pages=valid_pages,
         int8_cache_bytes=2 * DECODE_PAGES * PAGE * QWEN_HKV * QWEN_D,
-        kv_quant_max_abs_err_int8=kq_diff, kv_quant_exact=kq_exact,
+        kv_quant_max_abs_err_int8=kq_diff, kv_quant_exact=kq_diff == 0,
         max_abs_err=errs, vs_serial_max_abs_err=serial_err,
         seconds=round(secs, 4))
 
@@ -1035,14 +1068,25 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
     from repro_torch.kernels import refresh_paged_attention as rpa
     out = {}
     kp, q, cache, valid_pages = dec
-    # f32 pages read once, int8 pages and f32 scales written once
+    # the pages read once, int8 pages and f32 scales written once: f32
+    # as the path quantizes them, and bf16 as the reference's cache does
+    # (its staging pages, src/repro/kvcache/paged.py)
+    kpb = kp.to(torch.bfloat16)
     nbytes = 5 * kp.numel() + 4 * kp.shape[0] * kp.shape[2]
     ms, b_by = bound(nbytes, 0, 1.0)
+    _, t_, _, d_ = kp.shape
     out["kv_quant"] = dict(
         shape=list(kp.shape), dtype="float32",
         ms=time_cuda(torch, lambda i: kq.kv_quant(kp), 20),
         plain_ms=time_cuda(torch, lambda i: kq.kv_quant_torch(kp), 5),
-        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+        bound_ms=ms, bound_by=b_by, bytes=nbytes,
+        bf16_ms=time_cuda(torch, lambda i: kq.kv_quant(kpb), 20),
+        bf16_plain_ms=time_cuda(torch, lambda i: kq.kv_quant_torch(kpb), 5),
+        bf16_bound_ms=bound(nbytes - 2 * kp.numel(), 0, 1.0)[0],
+        bf16_bytes=nbytes - 2 * kp.numel(),
+        plan={"f32": kq.plan(t_, d_, 4), "bf16": kq.plan(t_, d_, 2),
+              "order": "vector bytes, vectors a thread, threads a block"})
+    del kpb
     # the int8 K and V of each sequence's first seq_len rows, the valid
     # pages' scales and table entries, and the lengths read once; q read
     # and the output written once
@@ -1207,8 +1251,9 @@ def main() -> int:
         "wide_128_banks": wide,
         "tolerance": 0, "float_kernels": flt, "float_tolerances": {
             "flash": FLASH_TOL, "paged_attention": PAGED_TOL,
-            "mamba2_ssd": SSD_TOL, "kv_quant": "scales rtol 1e-4, int8 "
-            "within 1, |x - q s| <= 0.51 s"}})
+            "mamba2_ssd": SSD_TOL, "kv_quant": "exact: scales bit for bit "
+            "(NaN where NaN), int8 where x / s is finite (0 where not), "
+            "|x - q s| <= 0.51 s"}})
 
     # 4 - 7. the main paths, each with every launch counter from zero
     paths = {}
@@ -1349,12 +1394,16 @@ def main() -> int:
          "launches": sum(by_path["kv_quant"].values()),
          "launches_by_path": by_path["kv_quant"],
          "timed_at": f"pages {tf['kv_quant']['shape']} float32 (path "
-                     f"ops_paged_decode)",
+                     f"ops_paged_decode); bfloat16 in the bf16_* keys",
          "max_abs_err": dec["kv_quant_max_abs_err_int8"],
          "exact": dec["kv_quant_exact"],
          "ms": tf["kv_quant"]["ms"], "plain_ms": tf["kv_quant"]["plain_ms"],
          "bound_ms": tf["kv_quant"]["bound_ms"],
-         "bound_by": tf["kv_quant"]["bound_by"], "library_ms": None,
+         "bound_by": tf["kv_quant"]["bound_by"],
+         "bf16_ms": tf["kv_quant"]["bf16_ms"],
+         "bf16_plain_ms": tf["kv_quant"]["bf16_plain_ms"],
+         "bf16_bound_ms": tf["kv_quant"]["bf16_bound_ms"],
+         "plan": tf["kv_quant"]["plan"], "library_ms": None,
          "library_note": "no PyTorch call quantizes with a scale per "
                          "(page, head)"},
         {"name": "flash_attention_kernel", "route": "cuda",

@@ -116,7 +116,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sweep_error_string.restype = ctypes.c_char_p
     # the float kernels: one entry point per input dtype
     for dt in ("f32", "bf16"):
-        getattr(lib, f"kv_quant_{dt}_launch").argtypes = [p] * 3 + [i] * 4 \
+        getattr(lib, f"kv_quant_{dt}_launch").argtypes = [p] * 3 + [i] * 7 \
             + [p]
         getattr(lib, f"paged_attention_{dt}_launch").argtypes = \
             [p] * 9 + [i] * 7 + [p]

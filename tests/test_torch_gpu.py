@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker `gpu`): each sweep
 kernel against its plain PyTorch version and the numpy `batched`
-backend, exact; each float kernel (kv_quant, paged attention, flash
-attention, Mamba2 SSD) against its plain version at the reference's
-bars, with TF32 off. They import nothing of JAX, so they run on a machine that has only the
+backend, exact; kv_quant against its plain version exactly, on finite
+pages and on pages with a NaN slice and an inf slice; each other float
+kernel (paged attention, flash attention, Mamba2 SSD) against its plain
+version at the reference's bars, with TF32 off. They import nothing of JAX, so they run on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src:tests python -m pytest -q -m gpu --noconftest \
@@ -127,11 +128,13 @@ def _gpu_float_setup():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nonfinite", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", cs.KV_QUANT_SHAPES)
-def test_cuda_kv_quant_equals_plain_version(dtype, shape):
+def test_cuda_kv_quant_equals_plain_version(dtype, shape, nonfinite):
     from repro_torch.kernels import kv_quant as kq
-    pages = cs.kv_quant_input(torch, _gpu_float_setup(), shape, dtype)
+    pages = cs.kv_quant_input(torch, _gpu_float_setup(), shape, dtype,
+                              nonfinite)
     before = kq.LAUNCHES
     q8, sc = kq.kv_quant(pages)
     assert kq.LAUNCHES == before + 1
