@@ -40,7 +40,9 @@ and prints one JSON object a line:
               bfloat16); kv_quant exactly, at `KV_QUANT_SHAPES` (model
               widths, rows of 24, 12 and 10 bytes, a slice past the
               register tile) on finite pages and on pages with a NaN
-              slice and an inf slice;
+              slice and an inf slice; the reference's golden megakernel
+              cases (`tests/fixtures/megakernel/`) through A1 and A2,
+              equal to `batched`;
   4. paper    the main path at the paper's grid: figure-3 policies x the
               closed figure scenarios x 3 densities, reqs=2000, seeds 1
               and 2, through `sweep(spec)` (default backend: the
@@ -86,11 +88,26 @@ and prints one JSON object a line:
               and `ops.flash_attention_trainable`'s gradients at S=512
               (path `ops_prefill_flash`); mamba2-130m's SSD, x [8, 4096,
               24, 64] through `ops.mamba2_ssd` (F) (path `ops_ssd`).
+  8. figures  the port's figure, bench and tool scripts in this process,
+              on the card (path `figures_mega`: A1 and A2): at
+              `benchmarks/run.py --fast`'s arguments `fig_grids(800)`,
+              `fig1`, `fig2`, `fig3`, `sweep_grid`, `closed_loop`,
+              `sweep_multirank`, `sweep_subarray`, `command_trace`,
+              `sweep_mega` (its regression guard: the warm megakernel
+              beats `batched` on the open 8x8x3 grid), `bench_sarp_bytes`
+              and `tools/check_commands_torch.py` (exit 0), every
+              deterministic field equal to the reference's committed
+              `results/bench/*.json`, with their times; then Figures 1
+              and 3 at full load from phase 4's two paper-grid sweeps,
+              equal to the reference's values to the digits of
+              `FIG1_FULL_LOSS_PCT` and `FIG3_FULL_IMPR_32_PCT`, ref_ab's
+              loss above ref_pb's at 32 Gb, each growing with density.
+              Nothing is written into the tree.
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-eleven paths and read just after it, and reported per path; a path that
+twelve paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -402,6 +419,39 @@ def check_wide(torch, sweep, SweepSpec):
     return out
 
 
+FIXTURES = os.path.join(HERE, "tests", "fixtures", "megakernel")
+
+
+def check_fixtures(sweep, SweepSpec):
+    """The reference's golden megakernel cases (`tests/fixtures/
+    megakernel/`: a sharded multirank x subarray shape, a one-cell grid,
+    mixed-density open tiles) through A1 / A2, each equal to `batched`;
+    closed cases with `record_commands`, which reconciles the kernel's
+    cells with the emitting batched run."""
+    out = []
+    for name in sorted(os.listdir(FIXTURES)):
+        with open(os.path.join(FIXTURES, name)) as f:
+            case = json.load(f)
+        spec = SweepSpec(policies=tuple(case["policies"]),
+                         scenarios=tuple(case["scenarios"]),
+                         densities=tuple(case["densities"]),
+                         reqs=case["reqs"], seed=case["seed"],
+                         mode=case["mode"], n_ranks=case.get("n_ranks", 1),
+                         n_channels=case.get("n_channels", 1),
+                         n_subarrays=case.get("n_subarrays", 1))
+        closed = spec.mode == "closed"
+        res = sweep(spec, "mega", record_commands=closed)
+        require_equal(sweep(spec, "batched"), res,
+                      f"fixture {name}: megakernel vs backend='batched'")
+        if not all(c.finished for c in res.cells):
+            raise AssertionError(f"fixture {name}: unfinished cells")
+        out.append(dict(case=name, mode=spec.mode, cells=len(res.cells),
+                        differing=0))
+    if len(out) < 3:
+        raise AssertionError(f"golden fixture corpus has {len(out)} cases")
+    return out
+
+
 # ------------------------------------------------------------- phase 4
 def paper_phase(sweep, SweepSpec, np):
     runs = []
@@ -435,7 +485,7 @@ def paper_phase(sweep, SweepSpec, np):
         raise AssertionError(f"refresh-loss ordering broken: {loss}")
     max_ticks = [max(int(round(max(c.core_finish) / spec.dt_ns))
                      for c in r.cells) for spec, r, _ in runs]
-    return runs[0], dict(
+    return runs, dict(
         phase="paper", cells=len(runs[0][1].cells),
         seeds=list(FIG_SEEDS), reqs=2000, max_ticks_per_cell=max_ticks,
         mega_seconds=[round(s, 4) for _, _, s in runs],
@@ -1158,6 +1208,156 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
     return out
 
 
+# ------------------------------------------------------------- phase 8
+#: the reference's artifacts of `benchmarks/run.py --fast`, which the
+#: port's scripts must reproduce field for field
+ARTIFACTS = os.path.join(HERE, "results", "bench")
+#: the paper grid at full load (reqs=2000, seeds 1 and 2): Figure 1's
+#: losses and Figure 3's improvements over ref_ab at 32 Gb, in percent to
+#: the digits given, as the reference computes them
+FIG1_FULL_LOSS_PCT = {8: {"ref_ab": 4.263, "ref_pb": 3.433},
+                      16: {"ref_ab": 6.349, "ref_pb": 4.249},
+                      32: {"ref_ab": 9.662, "ref_pb": 9.075}}
+FIG3_FULL_IMPR_32_PCT = {"dsarp": 8.83, "sarp_pb": 7.81, "hira": 7.81,
+                         "darp": 4.34, "elastic": 3.62, "ref_pb": 0.65}
+
+
+def require_same(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def load_artifact(name):
+    with open(os.path.join(ARTIFACTS, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def check_artifacts(got):
+    """Every deterministic field of the port's `--fast` payloads (`got`:
+    name -> payload as loaded JSON) equal to the reference's committed
+    artifact of that name; timings are not compared."""
+    for name in ("fig1_refresh_loss", "fig3_dsarp", "fig2_sarp_timeline",
+                 "sarp_decode_bytes"):
+        require_same(got[name], load_artifact(name), name)
+    for name in ("sweep_grid", "sweep_closed_loop"):
+        want = load_artifact(name)
+        require_same(got[name]["grid"], want["grid"], f"{name} grid")
+        require_same(got[name]["bit_identical"], True, f"{name} identity")
+    for name, key in (("sweep_multirank", "per_rank_count"),
+                      ("sweep_subarray", "per_subarray_count")):
+        want = load_artifact(name)
+        require_same(got[name]["grid"], want["grid"], f"{name} grid")
+        require_same(got[name]["bit_identical"], True, f"{name} identity")
+        require_same({k: v["weighted_speedup_vs_ideal"]
+                      for k, v in got[name][key].items()},
+                     {k: v["weighted_speedup_vs_ideal"]
+                      for k, v in want[key].items()}, f"{name} tables")
+    want = load_artifact("command_trace")
+    for k in ("commands", "counts", "violations", "bit_identical",
+              "disabled_emits_trace"):
+        require_same(got["command_trace"][k], want[k], f"command_trace {k}")
+    want, sm = load_artifact("sweep_mega"), got["sweep_mega"]
+    require_same(sm["grid"], want["grid"], "sweep_mega grid")
+    require_same([(r["rung"], r["cells"], r["bit_identical_cells_checked"])
+                  for r in sm["ladder"]],
+                 [(r["rung"], r["cells"], r["bit_identical_cells_checked"])
+                  for r in want["ladder"]], "sweep_mega ladder")
+    require_same(sm["bit_identical"], True, "sweep_mega identity")
+
+
+def figures_phase(paper_runs):
+    """The port's figure, bench and tool scripts (`benchmarks_torch/
+    fig_refresh.py`, `bench_framework.py`, `tools/check_commands_torch.py`)
+    at `benchmarks/run.py --fast`'s arguments, in this process, on the
+    card: every deterministic field equal to the reference's committed
+    artifact, timings reported. Then Figures 1 and 3 at full load from
+    the paper grid's two sweeps (`paper_runs`, the same spec as
+    `fig_grids(2000)`), held to the reference's values, ref_ab's loss
+    above ref_pb's at 32 Gb and each loss growing with density. Writes
+    nothing into the tree."""
+    import contextlib
+    import importlib.util
+    import io
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from benchmarks_torch import bench_framework as BF
+    from benchmarks_torch import fig_refresh as FR
+
+    def as_json(obj):
+        return json.loads(json.dumps(obj, default=str))
+
+    secs, got = {}, {}
+
+    def run(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    runs = run("fig_grids", FR.fig_grids, reqs=800)
+    if any(r.backend != "mega" for r in runs):
+        raise AssertionError("fig_grids did not sweep on the megakernel")
+    got["fig1_refresh_loss"] = as_json(FR.fig1(runs=runs))
+    got["fig3_dsarp"] = as_json(FR.fig3(runs=runs))
+    got["fig2_sarp_timeline"] = as_json(run("fig2", FR.fig2))
+    got["sweep_grid"] = as_json(run("sweep_grid", FR.sweep_grid, fast=True))
+    got["sweep_closed_loop"] = as_json(run("closed_loop", FR.closed_loop,
+                                           fast=True))
+    got["sweep_multirank"] = as_json(run("sweep_multirank",
+                                         FR.sweep_multirank, fast=True))
+    got["sweep_subarray"] = as_json(run("sweep_subarray", FR.sweep_subarray,
+                                        fast=True))
+    got["command_trace"] = as_json(run("command_trace", FR.command_trace,
+                                       fast=True))
+    got["sweep_mega"] = as_json(run("sweep_mega", FR.sweep_mega, fast=True))
+    got["sarp_decode_bytes"] = as_json(BF.bench_sarp_bytes())
+    spec = importlib.util.spec_from_file_location(
+        "check_commands_torch",
+        os.path.join(HERE, "tools", "check_commands_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main([])
+    secs["check_commands_torch"] = round(time.perf_counter() - t0, 3)
+    tool_line = buf.getvalue().strip().splitlines()[-1]
+    if rc != 0:
+        raise AssertionError(f"check_commands_torch exited {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+
+    check_artifacts(got)
+    sm = got["sweep_mega"]
+
+    # full load: the paper grid's two sweeps
+    f1 = FR.fig1(runs=paper_runs)
+    f3 = FR.fig3(runs=paper_runs)
+    loss = {d: {p: round(100 * v, 3) for p, v in row.items()}
+            for d, row in f1.items()}
+    impr = {p: round(100 * f3[32][p]["improvement_vs_refab"], 2)
+            for p in FIG3_FULL_IMPR_32_PCT}
+    require_same(loss, FIG1_FULL_LOSS_PCT, "Figure 1 at full load (%)")
+    require_same(impr, FIG3_FULL_IMPR_32_PCT,
+                 "Figure 3 at full load, improvement at 32 Gb (%)")
+    if not f1[32]["ref_ab"] > f1[32]["ref_pb"]:
+        raise AssertionError(f"Figure 1 at full load: ref_ab's loss is not "
+                             f"above ref_pb's at 32 Gb: {f1[32]}")
+    for p in ("ref_ab", "ref_pb"):
+        if not f1[8][p] < f1[16][p] < f1[32][p]:
+            raise AssertionError(f"Figure 1 at full load: {p}'s loss does "
+                                 f"not grow with density: {loss}")
+    return dict(
+        phase="figures", artifacts_matched=sorted(got),
+        check_commands=tool_line, seconds=secs,
+        ladder=sm["ladder"], shards=sm["shards"],
+        ref_grid_8x8x3=sm["ref_grid_8x8x3"],
+        command_trace_overhead_pct=got["command_trace"]["overhead_pct"],
+        fast_fig1_loss_32gb=got["fig1_refresh_loss"]["32"],
+        full_load_fig1_loss_pct=loss,
+        full_load_fig3_improvement_32gb_pct=impr,
+        full_load_fig1=f1, full_load_fig3_32gb=f3[32])
+
+
 def sass_counts(path):
     """Tensor-core instructions counted in `cuobjdump -sass` of the built
     library: HGMMA (`wgmma`) in kernel E's bf16 function, HMMA
@@ -1243,12 +1443,13 @@ def main() -> int:
     lane_orders = check_megakernel(sweep, lane_order_specs(SweepSpec,
                                                            policies))
     wide = check_wide(torch, sweep, SweepSpec)
+    fixtures = check_fixtures(sweep, SweepSpec)
     flt = check_float_kernels(torch, np)
     emit({"phase": "kernels", "arbiter": {
         "G": ARBITER_G, "B": ARBITER_B, "forms": ["closed", "open"],
         "max_abs_err": arb_err}, "megakernel": grids,
         "open_megakernel": open_grids, "lane_orders": lane_orders,
-        "wide_128_banks": wide,
+        "wide_128_banks": wide, "golden_fixtures": fixtures,
         "tolerance": 0, "float_kernels": flt, "float_tolerances": {
             "flash": FLASH_TOL, "paged_attention": PAGED_TOL,
             "mamba2_ssd": SSD_TOL, "kv_quant": "exact: scales bit for bit "
@@ -1276,8 +1477,9 @@ def main() -> int:
                                      f"{name} kernel")
         return out
 
-    (paper_spec, paper_res, _), paper = drive(
+    paper_runs, paper = drive(
         "paper_mega", "mega", paper_phase, sweep, SweepSpec, np)
+    paper_spec, paper_res, _ = paper_runs[0]
     emit(dict(paper, launches=paths["paper_mega"]))
     emit(dict(drive("paper_batched_arbiter", "arbiter", paper_arbiter_phase,
                     sweep, paper_spec, paper_res),
@@ -1311,6 +1513,9 @@ def main() -> int:
     emit(dict(pre, launches=paths["ops_prefill_flash"]))
     ssd_args, sp = drive("ops_ssd", "mamba2_ssd", ssd_path, torch, np)
     emit(dict(sp, launches=paths["ops_ssd"]))
+    figs = drive("figures_mega", "mega+mega_open", figures_phase,
+                 [res for _, res, _ in paper_runs])
+    emit(dict(figs, launches=paths["figures_mega"]))
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)

@@ -186,3 +186,28 @@ def test_cuda_mamba2_ssd_equals_plain_version(b, s, h, p, n, chunk):
     assert ssd.LAUNCHES == before + 1
     cs.close(torch, got, ssd.mamba2_ssd_torch(*args, chunk=chunk),
              *cs.SSD_TOL, "mamba2 ssd")
+
+
+@pytest.mark.gpu
+def test_cuda_bench_run_fast_reproduces_the_reference_artifacts(tmp_path):
+    """`benchmarks_torch/run.py --fast` on the card, written to a scratch
+    directory: every deterministic field equals the reference's committed
+    `results/bench/*.json` (`chip_smoke.check_artifacts`), the figure
+    grids and the ladder ran on A1 and the regression guard on A2, and
+    `kernel_micro` has the reference's keys beside the kernels'."""
+    import importlib.util
+    import json
+    _need_card()
+    spec = importlib.util.spec_from_file_location(
+        "bench_run_torch", cs.HERE + "/benchmarks_torch/run.py")
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    closed, open_ = mega.LAUNCHES, mega.OPEN_LAUNCHES
+    assert run.main(["--fast", "--out", str(tmp_path)]) == 0
+    assert mega.LAUNCHES > closed and mega.OPEN_LAUNCHES > open_
+    got = {p.stem: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
+    cs.check_artifacts(got)
+    assert got["sweep_mega"]["ref_grid_8x8x3"]["fused_beats_batched"]
+    assert {"flash_ref_us", "kv_quant_us", "ssd_ref_us", "flash_kernel_us",
+            "kv_quant_kernel_us", "ssd_kernel_us"} <= set(got["kernel_micro"])
+    assert got["device"]["figure_backend"] == "mega"

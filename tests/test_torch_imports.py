@@ -1,5 +1,7 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import
-neither `jax` nor anything of the JAX package `repro`."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
+scripts (`benchmarks_torch/*.py`, `examples/dram_sweep_torch.py`,
+`tools/check_commands_torch.py`) import neither `jax` nor anything of
+the JAX package `repro`."""
 import pathlib
 import pkgutil
 import re
@@ -10,8 +12,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
-PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "dram_sweep_torch.py",
+    ROOT / "tools" / "check_commands_torch.py"]
 
 #: an import statement that names jax or the JAX package (not
 #: `repro_torch`), at any indentation
@@ -61,6 +65,32 @@ def test_importing_every_port_module_pulls_in_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("clean")
+
+
+#: the port's figure, bench, example and tool scripts
+SCRIPTS = ("benchmarks_torch/fig_refresh.py",
+           "benchmarks_torch/bench_framework.py", "benchmarks_torch/run.py",
+           "examples/dram_sweep_torch.py", "tools/check_commands_torch.py")
+
+
+def test_importing_the_port_scripts_pulls_in_neither_jax_nor_repro():
+    code = (
+        "import importlib.util, sys\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(SRC)!r}]\n"
+        f"for i, path in enumerate({list(SCRIPTS)!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', "
+        "path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'jaxlib' or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env={"PATH": ""}, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("clean")
 
