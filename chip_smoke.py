@@ -103,11 +103,28 @@ and prints one JSON object a line:
               `FIG1_FULL_LOSS_PCT` and `FIG3_FULL_IMPR_32_PCT`, ref_ab's
               loss above ref_pb's at 32 Gb, each growing with density.
               Nothing is written into the tree.
+  9. serving  the port's serving path at the full width of qwen2-0.5b
+              (24 layers, d_model 896, 14 q / 2 kv heads of 64, vocab
+              151936), f32 params and compute, random weights from seed 0
+              on the card: `repro_torch.models.transformer` `prefill` of
+              2 x 512 and 2 x 300 tokens (kernel E the causal attention,
+              24 launches a forward, the 300-token one padded to 384
+              rows) and 8 `decode_step`s, hidden states and K/V held
+              against the same calls with the plain attention in E's
+              place and the decode logits against the forward's, at
+              `MODEL_REL` of the largest magnitude (path
+              `model_prefill_flash`); then `repro_torch.launch.serve`'s
+              defaults through `EngineCore.run_until_done` (6 mixed
+              requests, 16 new tokens, darp, pages of 4, bf16 staging),
+              kernel D the page compressions, one decode round's logits
+              held against the same call on the CPU with the same cache
+              state, and the greedy streams against a CPU run of the same
+              engine (path `serve_engine`).
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-twelve paths and read just after it, and reported per path; a path that
+fourteen paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -784,10 +801,13 @@ SSD_TOL = (5e-4, 2e-3)
 # the repo, at the paged cache's 64-token page); rows of 24 bytes in bf16
 # (8-byte vectors), of 24 / 12 bytes (8 / 4) and 20 / 10 bytes (4 / 2); a
 # slice of 128 x 256 values, larger than the register tile, walked in 4
-# tiles in f32 and 2 in bf16.
+# tiles in f32 and 2 in bf16; and the serving engine's staging slice at
+# qwen2-0.5b (24 layers in the page axis, pages of 4 tokens, 2 kv heads
+# of 64), which `PagedKVCache.compress_page` hands to D (path
+# `serve_engine`).
 KV_QUANT_SHAPES = ((3, 8, 2, 16), (6, 64, 8, 128), (2, 5, 1, 12),
                    (2, 64, 2, 112), (2, 64, 2, 64), (2, 128, 1, 256),
-                   (2, 3, 2, 6), (2, 4, 3, 5))
+                   (2, 3, 2, 6), (2, 4, 3, 5), (24, 4, 2, 64))
 PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
     (4, 10, 2, 16, 8, 4, (0, 9, 32, 1)),   # group 5, a zero length
     (2, 8, 8, 32, 16, 2, (17, 32)),        # group 1
@@ -1358,6 +1378,364 @@ def figures_phase(paper_runs):
         full_load_fig1=f1, full_load_fig3_32gb=f3[32])
 
 
+# ------------------------------------------------------------- phase 9
+# the serving path of the port at the full width of the reference's own
+# serving default, qwen2-0.5b (src/repro/launch/serve.py:39;
+# src/repro/configs/qwen2_0_5b.py: 24 layers, d_model 896, d_ff 4864, 14
+# q heads and 2 kv heads of 64, vocab 151936, tied embeddings, QKV bias),
+# f32 params and compute, random weights from seed 0 on the card.
+MODEL_ARCH = "qwen2-0.5b"
+MODEL_B, MODEL_S, MODEL_RAGGED, MODEL_DECODE = 2, 512, 300, 8
+#: the model paths' bar: kernel against plain version (prefill hidden
+#: states, caches) and card against CPU (serving logits), each within
+#: this share of the plain / CPU result's largest magnitude. Both sides
+#: compute in float32 (TF32 off); they differ by summation order through
+#: 24 layers, ~1e-6 of the magnitude.
+MODEL_REL = 1e-4
+
+
+def held(torch, got, want, what, rel=MODEL_REL):
+    """Max abs difference of two float tensors of one shape, raised on
+    beyond `rel` of `want`'s largest magnitude (or a non-finite value)."""
+    g, w = got.float(), want.float().to(got.device)
+    if g.shape != w.shape:
+        raise AssertionError(f"{what}: shapes {tuple(g.shape)} and "
+                             f"{tuple(w.shape)}")
+    err = float((g - w).abs().max())
+    bar = rel * float(w.abs().max())
+    if not (bool(torch.isfinite(g).all()) and err <= bar):
+        raise AssertionError(f"{what}: max abs difference {err} over the "
+                             f"bar {bar}")
+    return err
+
+
+def plain_attention(fa):
+    """A context in which kernel E's wrapper computes with its plain
+    version (`ref.flash_attention`) on the card: the model's layers then
+    run their same code with the plain attention in E's place."""
+    from unittest import mock
+    return mock.patch.object(
+        fa, "flash_attention",
+        lambda q, k, v, *, causal=True: fa.flash_attention_torch(
+            q, k, v, causal=causal))
+
+
+def model_prefill_path(torch, np):
+    """qwen2-0.5b at full width through `repro_torch.models.transformer`:
+    `prefill` of 2 x 512 tokens and of 2 x 300 (padded to 384 rows for
+    kernel E), then 8 `decode_step`s after the 512-token prefill. E is
+    the causal attention of every layer: 24 launches a forward. Returns
+    what the checks need and the path's numbers."""
+    from repro_torch.common.config import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.dims import make_dims
+    cfg = get_arch(MODEL_ARCH)
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init(gen, cfg, dims, "cuda")
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (MODEL_B, MODEL_S + MODEL_DECODE))).cuda()
+    out = {}
+    for s in (MODEL_S, MODEL_RAGGED):
+        before = fa.LAUNCHES
+        fwd = T.forward(params, cfg, dims, tokens=toks[:, :s], mode="prefill")
+        out[s] = dict(fwd=fwd, launches=fa.LAUNCHES - before)
+        batch = {"tokens": toks[:, :s]}
+        out[s]["prefill_ms"] = time_cuda(
+            torch, lambda i: T.prefill(params, batch, cfg, dims), 3)
+    logits, caches = T.prefill(params, {"tokens": toks[:, :MODEL_S]}, cfg,
+                               dims)
+    state = T.init_decode_state(cfg, dims, MODEL_B, MODEL_S + MODEL_DECODE,
+                                "cuda")
+    for k in state:
+        state[k][:, :, :MODEL_S] = caches[k]
+    step_logits, step_ms = [], []
+    for t in range(MODEL_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = T.decode_step(params, state, cfg, dims,
+                                  token=toks[:, MODEL_S + t],
+                                  pos=MODEL_S + t)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        step_logits.append(lg)
+    profiles = {
+        "prefill_512": device_share(torch, lambda: T.prefill(
+            params, {"tokens": toks[:, :MODEL_S]}, cfg, dims)),
+        "decode_step": device_share(torch, lambda: T.decode_step(
+            params, state, cfg, dims, token=toks[:, -1],
+            pos=MODEL_S + MODEL_DECODE - 1))}
+    return dict(cfg=cfg, dims=dims, params=params, toks=toks, out=out,
+                step_logits=torch.stack(step_logits, 1)), dict(
+        phase="model_prefill_flash", model=MODEL_ARCH, dtype="float32",
+        layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        heads=[cfg.attention.n_heads, cfg.attention.n_kv_heads,
+               cfg.attention.head_dim], vocab=cfg.vocab_size,
+        prefill_shapes=[[MODEL_B, s] for s in (MODEL_S, MODEL_RAGGED)],
+        flash_launches_a_forward={str(s): out[s]["launches"]
+                                  for s in out},
+        prefill_ms={str(s): out[s]["prefill_ms"] for s in out},
+        decode_steps=MODEL_DECODE,
+        decode_ms_a_step=sum(step_ms[1:]) / (len(step_ms) - 1),
+        decode_ms_first_step=step_ms[0], profiles=profiles)
+
+
+def check_model_prefill(torch, run):
+    """The model path held: each prefill's hidden states and K/V caches
+    against the same forward with the plain attention in E's place, and
+    the 8 decode logits against the forward's logits at those positions
+    (decode is plain torch; the forward over 520 tokens is E, padded to
+    640 rows). Every forward must have launched E once a layer."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.loss import logits_for
+    cfg, dims, params = run["cfg"], run["dims"], run["params"]
+    errs = {}
+    for s, o in run["out"].items():
+        if o["launches"] != cfg.n_layers:
+            raise AssertionError(f"prefill {s}: {o['launches']} flash "
+                                 f"launches, not one a layer")
+        with plain_attention(fa):
+            h, _, caches = T.forward(params, cfg, dims,
+                                     tokens=run["toks"][:, :s],
+                                     mode="prefill")
+        hk, _, ck = o["fwd"]
+        errs[f"hidden_{s}"] = held(torch, hk, h, f"prefill {s} hidden")
+        errs[f"k_{s}"] = held(torch, ck["k"], caches["k"], f"prefill {s} k")
+        errs[f"v_{s}"] = held(torch, ck["v"], caches["v"], f"prefill {s} v")
+    n = MODEL_S + MODEL_DECODE
+    h, _, _ = T.forward(params, cfg, dims, tokens=run["toks"][:, :n])
+    want = logits_for(h[:, MODEL_S:].reshape(-1, cfg.d_model),
+                           T._head_matrix(params, dims), cfg.vocab_size)
+    v = cfg.vocab_size
+    got = run["step_logits"].reshape(-1, dims.vocab)
+    errs["decode_logits"] = held(torch, got[:, :v], want[:, :v],
+                                 "decode logits vs forward")
+    return errs
+
+
+def time_model_kernels(torch):
+    """E and D at the shapes the serving paths give them, beside their
+    plain versions and bounds (CUDA events; these launches are not
+    counted): E causal in float32 on q/k/v [28, 512, 64], qwen2-0.5b's 14
+    q heads x batch 2 of the 512-token prefill, and on [28, 384, 64], the
+    300-token prefill padded; E beside `scaled_dot_product_attention`.
+    D on the engine's bf16 staging slice [24, 4, 2, 64]. Each time is
+    held against its plain version first."""
+    import torch.nn.functional as F
+    from repro_torch.common.config import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_quant as kq
+    att = get_arch(MODEL_ARCH).attention
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    bh, d = MODEL_B * att.n_heads, att.head_dim
+    for s in (MODEL_S, -MODEL_RAGGED // fa.BLOCK * -fa.BLOCK):
+        a = [torch.randn((bh, s, d), generator=g, device="cuda")
+             for _ in range(3)]
+        err = close(torch, fa.flash_attention(*a, causal=True),
+                    fa.flash_attention_torch(*a, causal=True),
+                    *FLASH_TOL["float32"], f"flash at the model shape {s}")
+        fl = fa.operations(bh, s, s, d, True)
+        (ms, b_by), how = min(
+            (bound(4 * a[0].numel() * 4, fl, FP32_FLOPS),
+             "float32 CUDA cores"),
+            (bound(4 * a[0].numel() * 4, 3 * fl, TF32_TC_FLOPS),
+             "3xTF32 tensor cores"))
+        out[f"flash_attention_{s}"] = dict(
+            shape=[bh, s, d], dtype="float32", causal=True,
+            max_abs_err=err,
+            ms=time_cuda(torch, lambda i: fa.flash_attention(
+                *a, causal=True), 50, stall_ms=5),
+            plain_ms=time_cuda(torch, lambda i: fa.flash_attention_torch(
+                *a, causal=True), 20, stall_ms=5),
+            library_ms=time_cuda(torch, lambda i:
+                                 F.scaled_dot_product_attention(
+                                     *[x[None] for x in a], is_causal=True),
+                                 50, stall_ms=5),
+            bound_ms=ms, bound_by=b_by, bound_note=how)
+    shape = KV_QUANT_SHAPES[-1]                  # the engine's page
+    pages = kv_quant_input(torch, g, shape, torch.bfloat16)
+    err = check_kv_quant(torch, pages, *kq.kv_quant(pages),
+                         "kv_quant at the engine's page")
+    nbytes = 3 * pages.numel() + 4 * shape[0] * shape[2]
+    ms, b_by = bound(nbytes, 0, 1.0)
+    out["kv_quant"] = dict(
+        shape=list(pages.shape), dtype="bfloat16", max_abs_err=err,
+        ms=time_cuda(torch, lambda i: kq.kv_quant(pages), 200, stall_ms=5),
+        plain_ms=time_cuda(torch, lambda i: kq.kv_quant_torch(pages), 50,
+                           stall_ms=5),
+        bound_ms=ms, bound_by=b_by, bytes=nbytes)
+    return out
+
+
+def device_share(torch, fn):
+    """One warm call of `fn` under `torch.profiler`: its wall ms
+    (synchronized), the device's busy ms in it (the summed durations of
+    the device events the profiler records: kernels, copies, fills, which
+    one stream runs one after another) and their count. `device_ms` and
+    `busy_share` are None where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return dict(wall_ms=wall, device_events=len(dev),
+                device_ms=busy if dev else None,
+                busy_share=busy / wall if dev else None)
+
+
+def cache_copy(torch, cache, device):
+    """A copy of a `PagedKVCache` (tensors and bookkeeping) on `device`."""
+    import copy
+    c = copy.copy(cache)
+    c.device = torch.device(device)
+    for name in ("k_pages", "v_pages", "k_scale", "v_scale", "k_staging",
+                 "v_staging"):
+        setattr(c, name, getattr(cache, name).to(device, copy=True))
+    for name in ("page_table", "seq_len", "active", "page_state",
+                 "staging_slot"):
+        setattr(c, name, getattr(cache, name).copy())
+    c.free_pages, c.free_staging = list(cache.free_pages), list(
+        cache.free_staging)
+    c.stats = dict(cache.stats)
+    return c
+
+
+def serve_engine_path(torch, np):
+    """`repro_torch.launch.serve`'s defaults at full width on the card:
+    qwen2-0.5b, f32, 6 `--mixed` requests of 16 new tokens, policy darp,
+    pages of 4 tokens, bf16 staging (256 pages, 24 staging pages, 4
+    groups, 8 sequences, batch 4, prefill chunk 8), drained by
+    `EngineCore.run_until_done`. Page compressions are kernel D. The
+    first decode round that reads compressed pages of two or more
+    sequences is snapshotted (the cache copied to the host) for the CPU
+    check."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import paged_decode as pd
+    args = serve.parse_args(["--mixed", "--device", "cuda"])
+    cfg, dims = serve.config_for(args)
+    params = serve.init_params(args, cfg, dims)
+    snap = {}
+
+    def decode_fn(params, cfg, dims, cache, sids, tokens):
+        out = pd.paged_decode_forward(params, cfg, dims, cache, sids, tokens)
+        if not snap and cache.stats["compressions"] and len(sids) > 1:
+            snap.update(cache=cache_copy(torch, cache, "cpu"),
+                        sids=list(sids), tokens=tokens.cpu(),
+                        logits=out[0].cpu())
+        return out
+
+    eng, handles = serve.build_engine(args, params, decode_fn=decode_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done(max_rounds=args.max_rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.stats["timed_out"]:
+        raise AssertionError("serve_engine: the engine timed out before "
+                             "draining")
+    if not snap:
+        raise AssertionError("serve_engine: no decode round read "
+                             "compressed pages")
+    summ = eng.metrics_summary()
+    cs = eng.cache.stats
+    again = cache_copy(torch, snap["cache"], "cuda")
+    profile = device_share(torch, lambda: pd.paged_decode_forward(
+        params, cfg, dims, again, snap["sids"], snap["tokens"].cuda()))
+    return dict(args=args, params=params, handles=handles, snap=snap,
+                compressions=cs["compressions"]), dict(
+        phase="serve_engine", model=MODEL_ARCH, dtype="float32",
+        staging="bfloat16", policy=args.policy, requests=args.requests,
+        new=args.new, prompt_lens=[len(h.prompt) for h in handles],
+        states=sorted({h.state.value for h in handles}),
+        tokens=eng.stats["tokens"], seconds=round(wall, 3),
+        tok_per_s=eng.stats["tokens"] / wall,
+        ttft_ms={k: summ["ttft"][k] for k in ("p50_ms", "p99_ms")},
+        tpot_ms={k: summ["tpot"][k] for k in ("p50_ms", "p99_ms")},
+        compressions=cs["compressions"], forced=cs["forced"],
+        evictions=eng.stats["evictions"],
+        stall_rounds=eng.stats["stall_rounds"], rounds=eng.stats["rounds"],
+        prefill_calls=eng.stats["prefill_calls"],
+        decode_calls=eng.stats["decode_calls"],
+        decode_round_profile=dict(profile, sequences=len(snap["sids"])))
+
+
+def check_serve_on_cpu(torch, run, kv_launches):
+    """The serving path held against the CPU: the snapshotted decode
+    round's logits from `paged_decode_forward` on the card against the
+    same call on the CPU, same cache state, params moved there; then the
+    same engine run on the CPU, its greedy streams against the card's. A
+    token may differ only where the CPU's top-2 logit margin at that step
+    is within twice the bar (each of the two logits may move by the bar);
+    tokens after a request's first difference follow another input and
+    are counted, not held. Kernel D launched twice a compression (K and
+    V)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import paged_decode as pd
+    from repro_torch.common.treeutil import tree_map
+    if kv_launches != 2 * run["compressions"]:
+        raise AssertionError(f"serve_engine: {kv_launches} kv_quant "
+                             f"launches for {run['compressions']} "
+                             f"compressions")
+    args, snap = run["args"], run["snap"]
+    params = tree_map(lambda x: x.cpu(), run["params"])
+    cfg, dims = serve.config_for(args)
+    lg, _, _ = pd.paged_decode_forward(params, cfg, dims, snap["cache"],
+                                       snap["sids"], snap["tokens"])
+    v = cfg.vocab_size
+    logits_err = held(torch, snap["logits"][:, :v], lg[:, :v],
+                      "serving logits, card vs CPU")
+    cpu_args = serve.parse_args(["--mixed", "--device", "cpu"])
+    last, margins = {}, {}
+
+    def decode_fn(params, cfg, dims, cache, sids, tokens):
+        out = pd.paged_decode_forward(params, cfg, dims, cache, sids, tokens)
+        top2 = torch.topk(out[0], 2, dim=-1).values
+        for bi, sid in enumerate(sids):
+            last[sid] = (float(top2[bi, 0] - top2[bi, 1]),
+                         MODEL_REL * float(out[0][bi, :v].abs().max()))
+        return out
+
+    eng, handles = serve.build_engine(cpu_args, params, decode_fn=decode_fn)
+    for h in handles:
+        h.on_token = lambda h, tok: margins.setdefault(h.rid, []).append(
+            last[h.sid])
+    eng.run_until_done(max_rounds=cpu_args.max_rounds)
+    differ = 0
+    for gh, ch in zip(run["handles"], handles):
+        if gh.state.value != ch.state.value or len(gh.tokens) != len(
+                ch.tokens):
+            raise AssertionError(f"rid {gh.rid}: the card's request ended "
+                                 f"otherwise than the CPU's")
+        diff = [i for i, (a, b) in enumerate(zip(gh.tokens, ch.tokens))
+                if a != b]
+        differ += len(diff)
+        if diff:
+            margin, bar = margins[ch.rid][diff[0]]
+            if margin > 2 * bar:
+                raise AssertionError(
+                    f"rid {gh.rid}: token {diff[0]} differs from the CPU's "
+                    f"where the CPU's top-2 margin {margin} exceeds twice "
+                    f"the bar {bar}")
+    return dict(logits_max_abs_err=logits_err,
+                logits_rows=len(snap["sids"]),
+                snapshot_compressed_pages=int(
+                    (snap["cache"].page_state == 0).sum()),
+                tokens_differing_from_cpu=differ,
+                cpu_tokens=eng.stats["tokens"])
+
+
 def sass_counts(path):
     """Tensor-core instructions counted in `cuobjdump -sass` of the built
     library: HGMMA (`wgmma`) in kernel E's bf16 function, HMMA
@@ -1516,6 +1894,21 @@ def main() -> int:
     figs = drive("figures_mega", "mega+mega_open", figures_phase,
                  [res for _, res, _ in paper_runs])
     emit(dict(figs, launches=paths["figures_mega"]))
+    t_model = time.perf_counter()
+    model_run, mp = drive("model_prefill_flash", "flash_attention",
+                          model_prefill_path, torch, np)
+    mp["max_abs_err"] = check_model_prefill(torch, model_run)
+    mp["seconds"] = round(time.perf_counter() - t_model, 3)
+    emit(dict(mp, launches=paths["model_prefill_flash"]))
+    del model_run
+    t_serve = time.perf_counter()
+    serve_run, se = drive("serve_engine", "kv_quant", serve_engine_path,
+                          torch, np)
+    se["held_against_cpu"] = check_serve_on_cpu(
+        torch, serve_run, paths["serve_engine"]["kv_quant"])
+    se["seconds_with_cpu_check"] = round(time.perf_counter() - t_serve, 3)
+    emit(dict(se, launches=paths["serve_engine"]))
+    del serve_run
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)
@@ -1527,6 +1920,8 @@ def main() -> int:
     to = time_open_megakernel(torch, ladder_spec_open)
     to_grid = time_open_megakernel(torch, open_spec)
     tf = time_float_kernels(torch, dec_in, qkv, ssd_args)
+    tmk = time_model_kernels(torch)
+    tf["model_paths"] = tmk
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
           "megakernel": tm, "megakernel_paper_grid": tm_paper,
           "open_megakernel": to, "open_megakernel_open_grid": to_grid, **tf,
@@ -1609,6 +2004,7 @@ def main() -> int:
          "bf16_plain_ms": tf["kv_quant"]["bf16_plain_ms"],
          "bf16_bound_ms": tf["kv_quant"]["bf16_bound_ms"],
          "plan": tf["kv_quant"]["plan"], "library_ms": None,
+         "serving_page": tmk["kv_quant"],
          "library_note": "no PyTorch call quantizes with a scale per "
                          "(page, head)"},
         {"name": "flash_attention_kernel", "route": "cuda",
@@ -1631,6 +2027,8 @@ def main() -> int:
          "f32_bound_by": fl_32["bound_by"],
          "f32_bound_note": fl_32["bound_note"],
          "f32_library_ms": fl_32["library_ms"],
+         "model_path": {k: v for k, v in tmk.items()
+                        if k.startswith("flash")},
          "sass_HGMMA_bf16": sass["flash_bf16_HGMMA"],
          "sass_HMMA_f32": sass["flash_f32_HMMA"]},
         {"name": "mamba2_ssd_kernel", "route": "cuda",

@@ -1,2 +1,4 @@
-# Model layers of the port, mirroring `repro.models`. So far only the
-# Mamba2 SSD scan (`layers.ssd_chunked`), the oracle under kernel F.
+from repro_torch.models.dims import Dims, make_dims
+from repro_torch.models import api
+
+__all__ = ["Dims", "make_dims", "api"]

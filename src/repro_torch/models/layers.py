@@ -1,11 +1,299 @@
-"""Core layers, mirroring `repro/models/layers.py`. Only the Mamba2 SSD
-scan is ported so far; the rest of the module follows with the models."""
+"""Core layers, mirroring `repro/models/layers.py`: RMSNorm, RoPE/M-RoPE,
+GQA attention (chunked online softmax), gated MLP, MoE with sort-based
+capacity dispatch, and the Mamba2 SSD scan.
+
+All functions are pure functions of tensors. Compute happens in the
+inputs' dtype with float32 softmax/norm accumulators, as in the reference.
+The reference's sharding annotations (`shd`) have no counterpart on one
+card and are dropped.
+
+`chunked_attention` is where kernel E enters the model: on CUDA tensors
+it launches `repro_torch.kernels.flash_attention` (or raises), on CPU
+tensors it runs the reference's online-softmax loop. The Mamba2 layers
+other than `ssd_chunked` come with the mamba family.
+"""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as _fa
+
+# --------------------------------------------------------------------- norms
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
+            n: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm with an explicit logical divisor `n` (padded channels are zero,
+    so summing over the padded dim but dividing by the logical count keeps the
+    math identical to the unpadded model)."""
+    dtype = x.dtype
+    x = x.float()
+    denom = n if n is not None else x.shape[-1]
+    var = torch.sum(x * x, dim=-1, keepdim=True) / denom
+    y = x * torch.rsqrt(var + eps)
+    return (y * w.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------- rope
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Optional[tuple] = None):
+    """sin/cos tables. positions: [B, S] or [3, B, S] for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the head_dim/2 frequency channels are split into
+    (t, h, w) sections; section i uses position stream i.
+    """
+    half = head_dim // 2
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                             device=dev) / half))
+    pos = positions.float()
+    if positions.ndim == 3:
+        assert mrope_sections is not None and sum(mrope_sections) == half
+        sec_id = torch.repeat_interleave(
+            torch.arange(3, device=dev),
+            torch.tensor(mrope_sections, device=dev))              # [half]
+        angles3 = pos[..., None] * inv_freq[None, None, None, :]   # [3,B,S,half]
+        onehot = F.one_hot(sec_id, 3).float()                      # [half,3]
+        angles = torch.einsum("tbsh,ht->bsh", angles3, onehot)
+    else:
+        angles = pos[..., None] * inv_freq[None, None, :]          # [B,S,half]
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; sin/cos: [B, S, D/2]. Split-half convention."""
+    dtype = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
+    """[B,S,Hkv,D] -> [B,S,Hkv*group,D] by repeating each kv head."""
+    if group == 1:
+        return k
+    b, s, hkv, d = k.shape
+    k = k[:, :, :, None, :].expand(b, s, hkv, group, d)
+    return k.reshape(b, s, hkv * group, d)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_block: int = 1024, kv_block: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """GQA attention. q: [B,Sq,Hq,D]; k/v: [B,Skv,Hkv,D]. Returns [B,Sq,Hq,D].
+
+    On CUDA tensors: kernel E (`_flash_on_card`), which raises where it
+    cannot compute the same function. On CPU tensors: the reference's
+    memory-bounded form, an online softmax over KV blocks looped over Q
+    blocks, KV unexpanded and q heads grouped [B,Sq,Hkv,G,D].
+    """
+    if q.device.type == "cuda":
+        return _flash_on_card(q, k, v, causal=causal, q_offset=q_offset)
+    if q.device.type != "cpu":
+        raise ValueError(f"chunked_attention: unsupported device {q.device}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, skv)
+    assert sq % q_block == 0 and skv % kv_block == 0
+    scale = 1.0 / math.sqrt(d)
+    nq, nk = sq // q_block, skv // kv_block
+
+    # [nq,B,Hkv,G,qb,D] / [nk,B,Hkv,kb,D]
+    qr = q.reshape(b, nq, q_block, hkv, g, d).permute(1, 0, 3, 4, 2, 5)
+    kr = k.reshape(b, nk, kv_block, hkv, d).permute(1, 0, 3, 2, 4)
+    vr = v.reshape(b, nk, kv_block, hkv, d).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(nq):
+        qblk = qr[qi].float() * scale
+        m = torch.full((b, hkv, g, q_block), -torch.inf)
+        l = torch.zeros((b, hkv, g, q_block))
+        acc = torch.zeros((b, hkv, g, q_block, d))
+        for ki in range(nk):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kr[ki].float())
+            if causal:
+                qpos = q_offset + qi * q_block + torch.arange(q_block)
+                kpos = ki * kv_block + torch.arange(kv_block)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            # guard fully-masked rows (m_new == -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vr[ki].float())
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    # [nq,B,Hkv,G,qb,D] -> [B,Sq,Hq,D]
+    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, hq, d)
+
+
+def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
+    """`chunked_attention` on the card: kernel E on [B·Hq, S, D], K/V
+    expanded to the q heads. E's q and kv blocks are `min(128, S)` rows
+    and must divide the lengths. A causal self-attention (`q_offset` 0,
+    Sq == Skv) of another length is padded at the end to a multiple of 128
+    and sliced back; that is exact, since no real query sees a key past
+    itself. Any other call E cannot take raises `ValueError`."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if q_offset:
+        raise ValueError(f"chunked_attention: kernel E counts query "
+                         f"positions from 0; q_offset={q_offset} is not "
+                         f"supported on the card")
+    pad = 0
+    try:
+        _fa.blocks(sq, skv)
+    except ValueError as e:
+        if not (causal and sq == skv):
+            why = "the call is non-causal" if not causal else "Sq != Skv"
+            raise ValueError(
+                f"chunked_attention: lengths Sq={sq}, Skv={skv} are not "
+                f"multiples of kernel E's {_fa.BLOCK}-row blocks and cannot "
+                f"be padded exactly: {why} (only a causal call with "
+                f"Sq == Skv can)") from e
+        pad = -sq % _fa.BLOCK
+    group = hq // k.shape[2]
+    k, v = _expand_kv(k, group), _expand_kv(v, group)
+
+    def heads_first(x):                  # [B,S,H,D] -> [B·H, S+pad, D]
+        x = x.permute(0, 2, 1, 3)
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+        return x.reshape(b * hq, x.shape[2], d).contiguous()
+
+    out = _fa.flash_attention(heads_first(q), heads_first(k), heads_first(v),
+                              causal=causal)
+    return out[:, :sq].reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len, group: int) -> torch.Tensor:
+    """Single-token attention against a dense KV cache, plain torch on
+    every device (the reference computes it in jnp too).
+
+    q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]. KV is never head-expanded: q is
+    grouped to [B,Hkv,G,D].
+    """
+    b, _, hq, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qr = q[:, 0].reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr.float(),
+                     k_cache.float()) / math.sqrt(d)
+    mask = torch.arange(smax, device=q.device)[None, None, None, :] < cur_len
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------- dense  MLP
+
+def eins(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with the result in a's dtype (b cast to it)."""
+    return torch.einsum(spec, a, b.to(a.dtype))
+
+
+def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+              wd: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP. x: [B,S,D]; wi/wg: [D,F]; wd: [F,D]."""
+    h = eins("bsd,df->bsf", x, wi)
+    g = eins("bsd,df->bsf", x, wg)
+    h = h * F.silu(g.float()).to(x.dtype)
+    return eins("bsf,fd->bsd", h, wd)
+
+
+# ---------------------------------------------------------------------- MoE
+
+def moe_route(x_flat: torch.Tensor, wr: torch.Tensor, top_k: int):
+    """Router: returns (expert_idx [T,k], weights [T,k] fp32, probs [T,E])."""
+    logits = torch.einsum("td,de->te", x_flat.float(), wr.float())
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, top_k, dim=-1)
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    return idx, weights, probs
+
+
+def moe_positions(expert_idx: torch.Tensor, n_experts: int, capacity: int):
+    """Sort-based intra-expert slot assignment (no [T,E,C] one-hots).
+
+    expert_idx: [T, k]. Returns slot [T, k] (position within expert,
+    >= capacity means dropped).
+    """
+    t, k = expert_idx.shape
+    flat = expert_idx.reshape(-1)                                # [T*k]
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    # start offset of each expert segment in the sorted order
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, device=flat.device), side="left")
+    pos_sorted = torch.arange(t * k, device=flat.device) - starts[sorted_e]
+    slot = torch.zeros_like(flat).scatter(0, order, pos_sorted)
+    return slot.reshape(t, k)
+
+
+def moe_apply_local(x_flat: torch.Tensor, expert_idx: torch.Tensor,
+                    weights: torch.Tensor, slot: torch.Tensor,
+                    we_i: torch.Tensor, we_g: torch.Tensor,
+                    we_o: torch.Tensor, *, capacity: int, expert_offset: int):
+    """Compute `E_loc` experts' contribution for the tokens.
+
+    x_flat [T,D]; we_*: [E_loc, D, F] / [E_loc, F, D]. Tokens routed to
+    experts outside [expert_offset, expert_offset + E_loc) or beyond
+    capacity contribute zero.
+    """
+    t, d = x_flat.shape
+    e_loc = we_i.shape[0]
+    k = expert_idx.shape[1]
+    local_e = expert_idx - expert_offset                        # [T,k]
+    valid = (local_e >= 0) & (local_e < e_loc) & (slot < capacity)
+    e_idx = torch.where(valid, local_e, 0).reshape(-1)
+    s_idx = torch.where(valid, slot, capacity - 1).reshape(-1)
+    # scatter tokens into capacity buffers [E_loc, C, D]
+    buf = torch.zeros((e_loc, capacity, d), dtype=x_flat.dtype,
+                      device=x_flat.device)
+    tok = x_flat[:, None, :].expand(t, k, d)
+    upd = torch.where(valid[..., None], tok, 0).reshape(-1, d)
+    buf = buf.index_put((e_idx, s_idx), upd, accumulate=True)
+    # expert FFN, batched over local experts
+    h = eins("ecd,edf->ecf", buf, we_i)
+    g = eins("ecd,edf->ecf", buf, we_g)
+    h = h * F.silu(g.float()).to(h.dtype)
+    out = eins("ecf,efd->ecd", h, we_o)
+    # gather back, weighted
+    picked = out[e_idx, s_idx].reshape(t, k, d)
+    picked = picked * (weights.to(picked.dtype)[..., None]
+                       * valid[..., None].to(picked.dtype))
+    return picked.sum(dim=1)                                    # [T, D]
+
+
+def moe_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
+                 n_experts: int) -> torch.Tensor:
+    """Switch/GShard load-balance loss: E * sum_e f_e * p_e."""
+    f = torch.zeros((n_experts,), device=probs.device).index_add_(
+        0, expert_idx.reshape(-1),
+        torch.ones(expert_idx.numel(), device=probs.device))
+    f = f / max(expert_idx.numel(), 1)
+    p = probs.mean(dim=0)
+    return n_experts * torch.sum(f * p)
+
+
+# -------------------------------------------------------------------- mamba2
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B_in: torch.Tensor, C_in: torch.Tensor, D_res: torch.Tensor,

@@ -3,7 +3,10 @@ kernel against its plain PyTorch version and the numpy `batched`
 backend, exact; kv_quant against its plain version exactly, on finite
 pages and on pages with a NaN slice and an inf slice; each other float
 kernel (paged attention, flash attention, Mamba2 SSD) against its plain
-version at the reference's bars, with TF32 off. They import nothing of JAX, so they run on a machine that has only the
+version at the reference's bars, with TF32 off; and the serving path's
+two kernel entries: `kvcache.quantize_page` (kernel D) on the engine's
+page and `models.layers.chunked_attention` (kernel E, with its padding
+and its refusals). They import nothing of JAX, so they run on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src:tests python -m pytest -q -m gpu --noconftest \
@@ -186,6 +189,78 @@ def test_cuda_mamba2_ssd_equals_plain_version(b, s, h, p, n, chunk):
     assert ssd.LAUNCHES == before + 1
     cs.close(torch, got, ssd.mamba2_ssd_torch(*args, chunk=chunk),
              *cs.SSD_TOL, "mamba2 ssd")
+
+
+# ------------------------------------------------------------ serving path
+@pytest.mark.gpu
+def test_cuda_quantize_page_equals_plain_version_at_the_engine_page():
+    """`kvcache.quantize_page` on the card is kernel D, exactly equal to
+    its plain version (on the card and on the CPU) on the serving
+    engine's bf16 staging slice [24, 4, 2, 64]; `compress_page` stores
+    what it returns."""
+    from repro_torch.kernels import kv_quant as kq
+    from repro_torch.kvcache import PagedKVCache, PagedKVConfig
+    from repro_torch.kvcache import quantize_page
+    g = _gpu_float_setup()
+    cache = PagedKVCache(PagedKVConfig(n_layers=24, n_kv_heads=2,
+                                       head_dim=64, page_size=4,
+                                       n_pages=256, n_staging=24,
+                                       n_groups=4, max_seqs=8))
+    sid = cache.new_seq()
+    for _ in range(4):
+        tok = torch.randn((24, 2, 64), generator=g, device="cuda") * 3
+        assert cache.append(sid, tok, -tok)
+    (page,) = cache.compressible_pages()
+    slot = int(cache.staging_slot[page])
+    staged = cache.k_staging[:, slot].contiguous()
+    before = kq.LAUNCHES
+    q8, sc = quantize_page(staged)
+    assert kq.LAUNCHES == before + 1
+    cs.check_kv_quant(torch, staged, q8, sc, "quantize_page, engine page")
+    q8_cpu, sc_cpu = quantize_page(staged.cpu())
+    assert torch.equal(q8.cpu(), q8_cpu)
+    assert torch.equal(sc.cpu().view(torch.int32), sc_cpu.view(torch.int32))
+    cache.compress_page(page)
+    assert kq.LAUNCHES == before + 3                    # K and V
+    assert torch.equal(cache.k_pages[:, page], q8)
+    assert torch.equal(cache.k_scale[:, page], sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,causal", [(300, True), (512, True),
+                                      (64, True), (256, False)])
+def test_cuda_chunked_attention_equals_plain_loop(dtype, s, causal):
+    """`layers.chunked_attention` on the card is kernel E on [B·Hq, S, D]
+    (K/V expanded from 2 kv heads to 14, a causal 300 padded to 384
+    rows), held against the plain online-softmax loop on the CPU at
+    `FLASH_TOL`."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    g = _gpu_float_setup()
+    q = torch.randn((2, s, 14, 64), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((2, s, 2, 64), generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    before = fa.LAUNCHES
+    got = L.chunked_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES == before + 1
+    want = L.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    cs.close(torch, got.cpu(), want, *cs.FLASH_TOL[cs.dtype_name(dtype)],
+             "chunked attention")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,q_offset,what", [
+    (False, 0, "non-causal"), (True, 8, "q_offset")])
+def test_cuda_chunked_attention_raises_where_kernel_e_cannot(causal,
+                                                             q_offset, what):
+    """A non-causal call of a length E's blocks do not divide, or a
+    q_offset, raises on the card: nothing falls back to the plain loop."""
+    from repro_torch.models import layers as L
+    _gpu_float_setup()
+    q = torch.zeros((1, 300, 2, 16), device="cuda")
+    with pytest.raises(ValueError, match=what):
+        L.chunked_attention(q, q, q, causal=causal, q_offset=q_offset)
 
 
 @pytest.mark.gpu

@@ -47,7 +47,17 @@ def test_port_has_the_expected_modules():
               "repro_torch.kernels.refresh_paged_attention",
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.mamba2_ssd",
-              "repro_torch.models.layers"):
+              "repro_torch.models.layers",
+              "repro_torch.common", "repro_torch.common.config",
+              "repro_torch.common.treeutil", "repro_torch.configs",
+              "repro_torch.configs.qwen2_0_5b",
+              "repro_torch.core.scheduler.darp", "repro_torch.kvcache",
+              "repro_torch.kvcache.paged", "repro_torch.serving",
+              "repro_torch.serving.engine", "repro_torch.serving.cosim",
+              "repro_torch.serving.paged_decode", "repro_torch.launch.serve",
+              "repro_torch.models.dims", "repro_torch.models.blocks",
+              "repro_torch.models.loss", "repro_torch.models.transformer",
+              "repro_torch.models.api", "repro_torch.models.convert"):
         assert m in mods, m
 
 
