@@ -1,14 +1,35 @@
 """Framework-side benchmarks of the PyTorch/CUDA port, the counterparts of
-`benchmarks/bench_framework.py`'s `bench_sarp_bytes` and
-`bench_kernel_micro`. (Its checkpoint and serving benches need the
-training and serving stacks, which the port does not have yet.)
+`benchmarks/bench_framework.py`'s serving, SARP and kernel benches. (Its
+checkpoint bench needs the training stack, which the port does not have
+yet.)
 
+bench_serving      : serving policies by registry name (all_bank /
+                     round_robin / darp / elastic / hira) through the
+                     legacy `ServingEngine` shim: throughput, forced
+                     stalls, compressions.
+bench_serving_lifecycle : `EngineCore` under a mixed-prompt batch with
+                     chunked prefill: TTFT/TPOT percentiles, stall and
+                     eviction counts, the prefill/decode call split.
+                     Raises on an engine timeout.
+bench_serving_cosim : the serving <-> DRAM co-sim sweep: one scenario's
+                     KV page traffic replayed through `DramSim` per
+                     refresh policy; tick-space TTFT/TPOT p99 orderings
+                     and the bit-identical replay pin.
 bench_sarp_bytes   : derived HBM traffic of fused vs serial paged attention
                      (plain arithmetic, the same numbers as the reference).
 bench_kernel_micro : us a call of the plain PyTorch versions
                      (`repro_torch.kernels.ref`) at the reference's three
                      shapes, beside the CUDA kernels through
                      `repro_torch.kernels.ops` (`*_kernel_us`).
+
+The serving benches take `device` (None: the card). Their models are the
+reduced qwen2-0.5b in float32 with weights drawn from seed 0 on that
+device: other numbers than the reference's JAX draws, so other tokens,
+but the same scheduling — the engine generates `max_new` tokens a
+request (it has no stop token) and decides maintenance, stalls and
+evictions from rounds and page occupancy, never from token values. What
+differs from the reference's artifacts is the wall clock (`wall_s`,
+`tok_per_s`, the `*_ms` percentiles).
 """
 from __future__ import annotations
 
@@ -16,6 +37,152 @@ import time
 
 import numpy as np
 import torch
+
+
+def _serving_model(device):
+    """The reduced qwen2-0.5b in float32 on `device` (None: the card),
+    weights from seed 0: (params, cfg, dims)."""
+    from repro_torch.common.config import get_arch
+    from repro_torch.models.api import get_model
+    from repro_torch.models.dims import make_dims
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the serving benches were asked to run on the "
+                           "card but torch.cuda.is_available() is False")
+    cfg = get_arch("qwen2-0.5b").reduced()
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return get_model(cfg).init(gen, cfg, dims, dev), cfg, dims
+
+
+def bench_serving(n_requests: int = 6, max_new: int = 24,
+                  policies: tuple = ("all_bank", "round_robin", "darp",
+                                     "elastic", "hira"),
+                  device=None) -> dict:
+    """Sweep the legacy `ServingEngine` shim over a policy axis (it
+    doubles as the compat regression for that surface)."""
+    import warnings
+    from repro_torch.kvcache import PagedKVConfig
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    params, cfg, dims = _serving_model(device)
+    out = {}
+    for pol in policies:
+        kv_cfg = PagedKVConfig(
+            n_layers=cfg.n_layers, n_kv_heads=dims.n_kv,
+            head_dim=cfg.attention.head_dim, page_size=4, n_pages=128,
+            n_staging=10, n_groups=4, max_seqs=8)
+        scfg = ServeConfig(max_batch=3, policy=pol,
+                           refresh_interval=3.0, max_compress_per_round=1,
+                           force_threshold=0.99 if pol == "all_bank" else 0.8)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = ServingEngine(params, cfg, dims, kv_cfg, scfg)
+        for i in range(n_requests):
+            eng.submit(Request(prompt=[1 + i, 2, 3, 4], max_new=max_new,
+                               rid=i))
+        t0 = time.perf_counter()
+        eng.run_until_done(max_rounds=600)
+        wall = time.perf_counter() - t0
+        out[pol] = {
+            "wall_s": round(wall, 2),
+            "tokens": eng.stats["tokens"],
+            "tok_per_s": round(eng.stats["tokens"] / wall, 1),
+            "forced_stalls": eng.stats["stall_rounds"],
+            "compressions": eng.cache.stats["compressions"]
+                            + eng.cache.stats["forced"],
+        }
+    return out
+
+
+def bench_serving_lifecycle(n_requests: int = 6, max_new: int = 12,
+                            policies: tuple = ("darp", "all_bank"),
+                            prefill_chunk: int = 8,
+                            max_rounds: int = 800, device=None) -> dict:
+    """`EngineCore` under a mixed-prompt batch (3..32-token prompts): per-
+    policy TTFT/TPOT percentiles, stall/eviction counts, and the
+    prefill/decode forward-call split that chunked prefill buys.
+
+    Raises RuntimeError if any policy's engine fails to drain within
+    `max_rounds`: a timed-out run has truncated percentiles and is never
+    reported."""
+    from repro_torch.kvcache import PagedKVConfig
+    from repro_torch.serving import EngineConfig, EngineCore
+
+    params, cfg, dims = _serving_model(device)
+    prompts = [[1 + i] + [2 + (5 * j + i) % 11
+                          for j in range(2 + (13 * i) % 30)]
+               for i in range(n_requests)]
+    out = {"prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+           "prefill_chunk": prefill_chunk}
+    for pol in policies:
+        kv_cfg = PagedKVConfig(
+            n_layers=cfg.n_layers, n_kv_heads=dims.n_kv,
+            head_dim=cfg.attention.head_dim, page_size=4, n_pages=128,
+            n_staging=16, n_groups=4, max_seqs=8)
+        ecfg = EngineConfig(
+            max_batch=4, policy=pol, refresh_interval=3.0,
+            prefill_chunk=prefill_chunk,
+            force_threshold=0.99 if pol == "all_bank" else 0.8)
+        eng = EngineCore(params, cfg, dims, kv_cfg, ecfg)
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new, rid=i)
+        t0 = time.perf_counter()
+        eng.run_until_done(max_rounds=max_rounds)
+        wall = time.perf_counter() - t0
+        if eng.stats["timed_out"]:
+            raise RuntimeError(
+                f"bench_serving_lifecycle: policy {pol!r} did not drain "
+                f"within {max_rounds} rounds ({len(eng.queue)} queued / "
+                f"{len(eng.active)} active left); refusing to report "
+                "truncated percentiles")
+        out[pol] = {
+            "wall_s": round(wall, 2),
+            "tokens": eng.stats["tokens"],
+            "tok_per_s": round(eng.stats["tokens"] / wall, 1),
+            "timed_out": eng.stats["timed_out"],
+            "evictions": eng.stats["evictions"],
+            **eng.metrics_summary(),
+        }
+    return out
+
+
+def bench_serving_cosim(n_requests: int = 200,
+                        scenario: str = "serving_bursty",
+                        policies: tuple = ("dsarp", "darp", "ref_pb",
+                                           "all_bank"),
+                        seed: int = 0, check_identical: bool = True,
+                        device=None) -> dict:
+    """The serving <-> DRAM co-sim sweep: replay one serving scenario's KV
+    page traffic through `DramSim` under each refresh policy and report
+    tick-space TTFT/TPOT percentiles, and whether the paper's
+    interference ordering (`policies` listed best to worst) holds end to
+    end. `CoSimTimeout` propagates if an engine cannot drain; the
+    determinism pin is `bit_identical`. The engine's stub forwards need
+    no model; its paged cache lives on `device` (None: the card)."""
+    from repro_torch.serving.cosim import (CoSimConfig, bit_identical_replay,
+                                           compare_policies)
+
+    device = "cuda" if device is None else str(device)
+    out = compare_policies(policies, scenario=scenario,
+                           n_requests=n_requests, seed=seed, device=device)
+    t99 = [out[p]["ttft_ticks"]["p99"] for p in policies]
+    q99 = [out[p]["tpot_ticks"]["p99"] for p in policies]
+    stall = [out[p]["dram_stall_ticks"] for p in policies]
+    res = {
+        "scenario": scenario, "n_requests": n_requests, "seed": seed,
+        "policies": list(policies),
+        "ttft_p99_ordered": all(a <= b for a, b in zip(t99, t99[1:])),
+        "tpot_p99_ordered": all(a <= b for a, b in zip(q99, q99[1:])),
+        "stall_ordered": all(a <= b for a, b in zip(stall, stall[1:])),
+        **out,
+    }
+    if check_identical:
+        res["bit_identical"] = bit_identical_replay(
+            CoSimConfig(policy=policies[0], scenario=scenario,
+                        n_requests=n_requests, seed=seed, device=device))
+    return res
 
 
 def bench_sarp_bytes(seq_len: int = 32768, page: int = 64, hkv: int = 8,

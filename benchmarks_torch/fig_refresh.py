@@ -65,6 +65,10 @@ GRID_SCENARIOS = ("read_heavy", "write_burst_draining",
                   "row_buffer_friendly", "bank_camping",
                   "subarray_conflict_adversarial", "trace_replay",
                   "mixed", "streaming")
+#: policy axis for the serving bench: the generic-engine spellings of the
+#: grid baselines plus the registry extras (defined here so every
+#: benchmark's policy axis lives next to the grid definitions)
+SERVING_POLICIES = ("all_bank", "round_robin", "darp", "elastic", "hira")
 #: fig3's policy axis; fig1's (ideal, ref_ab, ref_pb) is a subset, so one
 #: `fig_grids` result feeds both figures
 FIG3_POLICIES = ("ref_ab", "ref_pb", "darp", "sarp_pb", "dsarp",

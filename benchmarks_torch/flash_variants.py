@@ -176,17 +176,21 @@ def launcher(lib):
         fn.argtypes, fn.restype = [p] * 4 + [i] * 7 + [p], i
 
     def run(q, k, v, causal):
-        out = torch.empty_like(q)
+        # as `flash_attention_ragged`: q padded to E's blocks and sliced
+        # back, keys at their own length with a key block of 1
         bh, sq, d = q.shape
-        q_blk, kv_blk = fa.blocks(sq, k.shape[1])
+        rows = fa.padded_rows(sq)
+        if rows != sq:
+            q = torch.nn.functional.pad(q, (0, 0, 0, rows - sq)).contiguous()
+        out = torch.empty_like(q)
         dt = "f32" if q.dtype == torch.float32 else "bf16"
         err = getattr(lib, f"flash_attention_{dt}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            sq, k.shape[1], d, q_blk, kv_blk, int(causal),
+            rows, k.shape[1], d, min(fa.BLOCK, rows), 1, int(causal),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
-        return out
+        return out[:, :sq]
     return run
 
 

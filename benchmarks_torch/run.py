@@ -23,16 +23,23 @@ torch and CUDA versions, the flags).
                       tick body on the card, sharding probe, regression
                       guard vs batched on the 8x8x3 grid
   command_trace       command emission overhead, violations, round trip
+  serving_policies    serving maintenance policies through the legacy
+                      `ServingEngine` shim: tokens, stalls, compressions
+  serving_lifecycle   `EngineCore` request lifecycle: TTFT/TPOT
+                      percentiles under a mixed-prompt batch with chunked
+                      prefill, the prefill/decode call split
+  serving_cosim       serving <-> DRAM co-sim: tick-space TTFT/TPOT p99
+                      orderings per refresh policy, the bit-identical pin
   sarp_decode_bytes   fused vs serial paged-attention HBM traffic
   kernel_micro        plain versions and kernels, us a call on the card
 
 The figures sweep on `backend="mega"` on the card. With `--device cpu`
 they sweep on the numpy `batched` engine (the megakernel's plain version
-gives the same cells but is only a correctness oracle), and the two
-entries that time the card, `sweep_mega` and `kernel_micro`, are left
-out. The reference's `darp_ckpt`, `serving_policies`,
-`serving_lifecycle` and `serving_cosim` entries need the training and
-serving stacks, which the port does not have yet.
+gives the same cells but is only a correctness oracle), the serving
+entries run their engines on the CPU, and the two entries that time the
+card, `sweep_mega` and `kernel_micro`, are left out. The reference's
+`darp_ckpt` entry needs the training stack, which the port does not
+have yet.
 """
 from __future__ import annotations
 
@@ -166,6 +173,41 @@ def main(argv=None) -> int:
          f"overhead_pct={ct['overhead_pct']};"
          f"violations={ct['violations']};"
          f"bit_identical={ct['bit_identical']}", ct)
+
+    t0 = time.perf_counter()
+    sv = BF.bench_serving(n_requests=4 if fast else 6,
+                          max_new=12 if fast else 24,
+                          policies=FR.SERVING_POLICIES, device=device)
+    emit("serving_policies", (time.perf_counter() - t0) * 1e6,
+         f"darp_stalls={sv['darp']['forced_stalls']};"
+         f"allbank_stalls={sv['all_bank']['forced_stalls']};"
+         f"darp_tps={sv['darp']['tok_per_s']}", sv)
+
+    t0 = time.perf_counter()
+    sl = BF.bench_serving_lifecycle(n_requests=4 if fast else 6,
+                                    max_new=8 if fast else 12,
+                                    device=device)
+    emit("serving_lifecycle", (time.perf_counter() - t0) * 1e6,
+         f"darp_ttft_p50_ms={sl['darp']['ttft']['p50_ms']};"
+         f"darp_tpot_p50_ms={sl['darp']['tpot']['p50_ms']};"
+         f"prefill_calls={sl['darp']['prefill_calls']};"
+         f"decode_calls={sl['darp']['decode_calls']}", sl)
+
+    t0 = time.perf_counter()
+    # fast mode trims the policy sweep, not the request count: the p99
+    # orderings only stabilize at a few hundred requests
+    sc = BF.bench_serving_cosim(
+        n_requests=200, scenario="serving_bursty",
+        policies=(("darp", "all_bank") if fast
+                  else ("dsarp", "darp", "ref_pb", "all_bank")),
+        device=device)
+    emit("serving_cosim", (time.perf_counter() - t0) * 1e6,
+         f"ttft_p99_ordered={sc['ttft_p99_ordered']};"
+         f"tpot_p99_ordered={sc['tpot_p99_ordered']};"
+         f"stall_ordered={sc['stall_ordered']};"
+         f"bit_identical={sc['bit_identical']};"
+         f"darp_ttft_p99={sc['darp']['ttft_ticks']['p99']};"
+         f"allbank_ttft_p99={sc['all_bank']['ttft_ticks']['p99']}", sc)
 
     sb = BF.bench_sarp_bytes()
     emit("sarp_decode_bytes", 0.0,

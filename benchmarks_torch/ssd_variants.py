@@ -267,8 +267,8 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) ssd_carry_kernel(
 THREE_LAUNCHES = [
     ("    if (!first) {\n      if (tid == 0)\n",
      "    if (false) {\n      if (tid == 0)\n"),
-    ("    if (!last && p_on) {\n"
-     "      float* hp = ring + (slot0 + (c & 1)) * hstride;\n",
+    ("    if ((!last || hlast) && p_on) {\n"
+     "      float* hp = last ? hlast : ring + (slot0 + (c & 1)) * hstride;\n",
      "    if (tid == 0)\n"
      "      ring[(size_t)Bsz * nc * H * hstride + ((size_t)b * nc + c) * H + h]"
      " = total;\n"
@@ -279,8 +279,8 @@ THREE_LAUNCHES = [
     ("    if (!first && p_on) {\n      float yo[8][4];",
      "    if (false) {\n      float yo[8][4];"),
     ("\n}  // namespace\n", "\n" + SCAN_AND_CARRY),
-    ("      N, L, hpb);\n  return (int)cudaGetLastError();\n}",
-     "      N, L, hpb);\n"
+    ("      Bsz, S, H, P, N, L, hpb);\n  return (int)cudaGetLastError();\n}",
+     "      Bsz, S, H, P, N, L, hpb);\n"
      "  err = cudaGetLastError();\n  if (err != cudaSuccess) return (int)err;\n"
      "  ssd_scan_kernel<<<Bsz * H * ((P * N + SSD_THREADS - 1) / SSD_THREADS),\n"
      "                    SSD_THREADS, 0, (cudaStream_t)stream>>>(\n"
@@ -328,13 +328,15 @@ def build(name, source, patches):
         text=True)
 
 
-def launcher(lib, walk, full_workspace=False):
+def launcher(lib, walk, full_workspace=False, state_arg=True):
     """run(x, dt, A, B, C, chunk, hpb) through a variant's library; the
-    three-launch variant takes a workspace of every chunk's state."""
+    three-launch variant takes a workspace of every chunk's state. The
+    kept source's launch function (`state_arg`) takes a final-state
+    pointer after y, passed null here: y alone is compared and timed."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.mamba2_ssd_f32_launch
     fn.argtypes = ([p] * 6 + [i] * 6 + [p]) if walk else (
-        [p] * 8 + [i] * 7 + [p])
+        [p] * (8 + state_arg) + [i] * 7 + [p])
     fn.restype = i
 
     def run(x, dt, A, B, C, chunk, hpb=ssd.HEADS_PER_BLOCK):
@@ -343,6 +345,8 @@ def launcher(lib, walk, full_workspace=False):
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [t.data_ptr() for t in (x, dt, A, B, C, y)]
+        if state_arg and not walk:
+            ptrs.append(0)
         if walk:
             err = fn(*ptrs, b, s, h, pw, n, chunk, stream)
         else:
@@ -390,7 +394,8 @@ def main():
             if "registers" in ln or "spill" in ln]})
         libs[name] = ctypes.CDLL(so)
     runs = {name: launcher(lib, name == "chunk_walk",
-                           name == "three_launches")
+                           name == "three_launches",
+                           VARIANTS[name][0] == SOURCE)
             for name, lib in libs.items()}
     for name, run in runs.items():
         emit({"variant": name, "worst_ratio_to_bar": worst_ratio(run)})

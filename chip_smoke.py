@@ -120,11 +120,29 @@ and prints one JSON object a line:
               held against the same call on the CPU with the same cache
               state, and the greedy streams against a CPU run of the same
               engine (path `serve_engine`).
+ 10. families the port's other model families at full width, f32, random
+              weights from a seeded generator on the card: mamba2-130m
+              (`prefill` of 2 x 512 tokens, and of 2 x 384 then 128
+              `decode_step`s; kernel F every layer's SSD, 24 launches a
+              prefill, its final state the decode state), held against
+              the same calls with the plain SSD in F's place (hidden
+              states, every layer's SSD and conv states), the decode
+              logits against the forward's, the last logits against a
+              CPU run (path `model_ssm_ssd`); zamba2-7b (`prefill` of
+              1 x 512 and 4 `decode_step`s: F in its 68 Mamba layers, E
+              causal with head dim 112 in the 13 applications of the
+              shared attention), held against the same calls with the
+              plain SSD and attention (path `model_hybrid`);
+              seamless-m4t-large-v2 (frame embeddings [2, 300, 1024] from
+              a seed, the BOS `prefill` and 8 `decode_step`s: E in all 72
+              attentions, the encoder's 300 x 300 and the cross 1 x 300
+              non-causal with ragged keys), held against the plain
+              attention (path `model_encdec_flash`); all at `MODEL_REL`.
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-fourteen paths and read just after it, and reported per path; a path that
+seventeen paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -826,18 +844,37 @@ PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
 # the float32 plain version alone then lies further than FLASH_TOL from
 # the exact result, so no float32 kernel that sums in another order could
 # be held to it.)
+# The last four are the models' lengths, which E's blocks do not divide
+# and which go through `flash_attention_ragged` (`flash_entry`): the
+# encoder-decoder's cross-attention at its BOS prefill (1 query over 300
+# frames) and its encoder (300 x 300), a longer ragged pair (1000: 8
+# padded q blocks, 16 kv tiles of 64 with a ragged last one), and
+# zamba2's head dim 112 (divided, through `flash_attention`).
 FLASH_CASES = ((2, 64, 64, 16, 1), (1, 16, 16, 8, 1), (1, 256, 256, 64, 1),
                (2, 128, 128, 128, 1),
                (1, 128, 256, 128, 1), (2, 256, 128, 64, 1),
                (2, 8, 8, 16, 1), (1, 48, 48, 32, 1),
                (1, 64, 64, 4, 1), (2, 32, 32, 12, 1), (1, 128, 128, 100, 1),
-               (1, 256, 256, 64, 8))
+               (1, 256, 256, 64, 8),
+               (2, 1, 300, 64, 1), (2, 300, 300, 64, 1),
+               (1, 1000, 1000, 64, 1), (2, 256, 256, 112, 1))
 # ssd: (b, s, h, p, n, chunk). Chunks of 8 and 16 rows (one tensor-core
 # tile, part of one); 64 chunks, whose state crosses 63 look-back steps;
 # P and N not multiples of 16 (tiles padded with zeros).
 SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),
              (1, 256, 2, 64, 128, 128), (2, 1024, 3, 64, 128, 16),
              (1, 64, 2, 12, 20, 32))
+
+
+def flash_entry(fa, sq, skv):
+    """Kernel E's entry point for lengths (sq, skv): `flash_attention`
+    where E's 128-row blocks divide them (the TPU kernel's contract),
+    else `flash_attention_ragged`, the models' route."""
+    try:
+        fa.blocks(sq, skv)
+    except ValueError:
+        return fa.flash_attention_ragged
+    return fa.flash_attention
 
 
 def dtype_name(dtype):
@@ -936,8 +973,9 @@ def check_float_kernels(torch, np):
     """C, D, E, F against their plain versions on the card at small edge
     shapes: ragged lengths, a zero-length sequence, -1 table padding, GQA
     groups 1, 5 and 16, and for flash `FLASH_CASES` (Sq != Skv, blocks
-    of 8 and 48 rows, D of 4, 12 and 100, a wide score range), both input
-    types."""
+    of 8 and 48 rows, D of 4, 12, 100 and 112, a wide score range, the
+    models' ragged lengths through `flash_attention_ragged`), both input
+    types; F's y with and without its final state, and the state."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_quant as kq
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -975,9 +1013,9 @@ def check_float_kernels(torch, np):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
-                got = fa.flash_attention(qd, kd, vd, causal=causal)
-                want = fa.flash_attention_torch(qd, kd, vd, causal=causal)
                 bh, sq, skv, d, qs = case
+                got = flash_entry(fa, sq, skv)(qd, kd, vd, causal=causal)
+                want = fa.flash_attention_torch(qd, kd, vd, causal=causal)
                 key = (f"flash {dtype} BH{bh} Sq{sq} Skv{skv} D{d} "
                        f"q_scale{qs} causal={causal}")
                 errs[key] = close(torch, got, want,
@@ -987,9 +1025,14 @@ def check_float_kernels(torch, np):
     for (b, s, h, p, n, chunk) in SSD_CASES:
         args = ssd_inputs(torch, g, b, s, h, p, n)
         key = f"ssd B{b} S{s} H{h} P{p} N{n} chunk{chunk}"
-        errs[key] = close(torch, ssd.mamba2_ssd(*args, chunk=chunk),
-                          ssd.mamba2_ssd_torch(*args, chunk=chunk),
+        y_want, st_want = ssd.mamba2_ssd_with_state_torch(*args, chunk=chunk)
+        errs[key] = close(torch, ssd.mamba2_ssd(*args, chunk=chunk), y_want,
                           *SSD_TOL, key)
+        y, st = ssd.mamba2_ssd_with_state(*args, chunk=chunk)
+        errs[key + " with state: y"] = close(torch, y, y_want, *SSD_TOL,
+                                             key + " with state: y")
+        errs[key + " final state"] = close(torch, st, st_want, *SSD_TOL,
+                                           key + " final state")
     out["mamba2_ssd"] = errs
     return out
 
@@ -1285,6 +1328,52 @@ def check_artifacts(got):
     require_same(sm["bit_identical"], True, "sweep_mega identity")
 
 
+#: the fields of the serving benches that the engine's scheduling decides
+#: (rounds, pages, policies: never the weights or the clock), per entry
+SERVING_POLICY_FIELDS = ("tokens", "forced_stalls", "compressions")
+SERVING_LIFECYCLE_FIELDS = ("tokens", "timed_out", "evictions", "completed",
+                            "evicted", "stall_rounds", "dram_stall_ticks",
+                            "prefill_calls", "decode_calls",
+                            "maintenance_events")
+
+
+def check_serving_artifacts(got):
+    """The port's `--fast` serving payloads (`serving_policies`,
+    `serving_lifecycle`, `serving_cosim`) against the reference's
+    committed artifacts: every scheduling field of every policy (tokens,
+    stalls, compressions, evictions, prompt lengths, the prefill/decode
+    call split), the co-sim's per-policy summaries whole (tick-space, so
+    deterministic) and its orderings over the policies run, and the
+    bit-identical pin. Wall-clock fields are not compared."""
+    want = load_artifact("serving_policies")
+    require_same(sorted(got["serving_policies"]), sorted(want),
+                 "serving_policies policies")
+    for pol, w in want.items():
+        for k in SERVING_POLICY_FIELDS:
+            require_same(got["serving_policies"][pol][k], w[k],
+                         f"serving_policies {pol} {k}")
+    want, sl = load_artifact("serving_lifecycle"), got["serving_lifecycle"]
+    for k in ("prompt_lens", "max_new", "prefill_chunk"):
+        require_same(sl[k], want[k], f"serving_lifecycle {k}")
+    for pol in ("darp", "all_bank"):
+        for k in SERVING_LIFECYCLE_FIELDS:
+            require_same(sl[pol][k], want[pol][k],
+                         f"serving_lifecycle {pol} {k}")
+    want, sc = load_artifact("serving_cosim"), got["serving_cosim"]
+    for k in ("scenario", "n_requests", "seed"):
+        require_same(sc[k], want[k], f"serving_cosim {k}")
+    pols = sc["policies"]
+    for pol in pols:
+        require_same(sc[pol], want[pol], f"serving_cosim {pol}")
+    for flag, key in (("ttft_p99_ordered", lambda x: x["ttft_ticks"]["p99"]),
+                      ("tpot_p99_ordered", lambda x: x["tpot_ticks"]["p99"]),
+                      ("stall_ordered", lambda x: x["dram_stall_ticks"])):
+        vals = [key(want[p]) for p in pols]
+        require_same(sc[flag], all(a <= b for a, b in zip(vals, vals[1:])),
+                     f"serving_cosim {flag}")
+    require_same(sc["bit_identical"], True, "serving_cosim identity")
+
+
 def figures_phase(paper_runs):
     """The port's figure, bench and tool scripts (`benchmarks_torch/
     fig_refresh.py`, `bench_framework.py`, `tools/check_commands_torch.py`)
@@ -1410,14 +1499,29 @@ def held(torch, got, want, what, rel=MODEL_REL):
 
 
 def plain_attention(fa):
-    """A context in which kernel E's wrapper computes with its plain
+    """A context in which kernel E's wrappers (`flash_attention` and the
+    models' route `flash_attention_ragged`) compute with their plain
     version (`ref.flash_attention`) on the card: the model's layers then
     run their same code with the plain attention in E's place."""
+    import contextlib
     from unittest import mock
-    return mock.patch.object(
-        fa, "flash_attention",
-        lambda q, k, v, *, causal=True: fa.flash_attention_torch(
-            q, k, v, causal=causal))
+
+    def plain(q, k, v, *, causal=True):
+        return fa.flash_attention_torch(q, k, v, causal=causal)
+    stack = contextlib.ExitStack()
+    for name in ("flash_attention", "flash_attention_ragged"):
+        stack.enter_context(mock.patch.object(fa, name, plain))
+    return stack
+
+
+def plain_ssd(ssd):
+    """A context in which kernel F's model route
+    (`mamba2_ssd_with_state`) computes with its plain version
+    (`ref.mamba2_ssd_with_state`) on the card: the Mamba layers then run
+    their same code with the plain SSD in F's place."""
+    from unittest import mock
+    return mock.patch.object(ssd, "mamba2_ssd_with_state",
+                             ssd.mamba2_ssd_with_state_torch)
 
 
 def model_prefill_path(torch, np):
@@ -1736,6 +1840,393 @@ def check_serve_on_cpu(torch, run, kv_launches):
                 cpu_tokens=eng.stats["tokens"])
 
 
+# ------------------------------------------------------------ phase 10
+# the port's other three model families at the full width of their
+# configs (src/repro/configs/): mamba2-130m (24 Mamba2 layers, d_model
+# 768, 24 SSD heads of 64, d_state 128, chunk 128, vocab 50280, tied),
+# zamba2-7b (13 groups of 5 Mamba2 layers and the shared attention + MLP,
+# then 3 Mamba2 layers: d_model 3584, d_ff 14336, 112 SSD heads of 64,
+# d_state 64, 32 attention heads of 112) and seamless-m4t-large-v2 (24
+# encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff 8192,
+# vocab 256206), f32 params and compute, random weights from a seeded
+# `torch.Generator` on the card; depth not cut.
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = ("mamba2-130m", "zamba2-7b",
+                                      "seamless-m4t-large-v2")
+SSM_B, SSM_S, SSM_PREFIX = 2, 512, 384   # 128 decode steps after 384
+HYBRID_B, HYBRID_S, HYBRID_DECODE = 1, 512, 4
+ENCDEC_B, ENCDEC_T, ENCDEC_DECODE = 2, 300, 8   # 300 frames: ragged keys
+
+
+def family_model(torch, name, seed):
+    """(cfg, dims, family module, params) of `name` at full width, f32,
+    params drawn on the card from a generator seeded with `seed`."""
+    from repro_torch.common.config import get_arch
+    from repro_torch.models.api import get_model
+    from repro_torch.models.dims import make_dims
+    cfg = get_arch(name)
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    mod = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, dims, mod, mod.init(gen, cfg, dims, "cuda")
+
+
+def kernel_launches(fn):
+    """`fn()` and the F and E launches it made: (out, {name: count})."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    before = (ssd.LAUNCHES, fa.LAUNCHES)
+    out = fn()
+    return out, {"mamba2_ssd": ssd.LAUNCHES - before[0],
+                 "flash_attention": fa.LAUNCHES - before[1]}
+
+
+def decode_chain(torch, mod, params, cfg, dims, state, toks, pos0):
+    """`decode_step` over `toks` [B, n] from `state` at positions pos0..:
+    the logits [B, n, V] and the host ms of each step (synchronized)."""
+    logits, ms = [], []
+    for t in range(toks.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = mod.decode_step(params, state, cfg, dims,
+                                    token=toks[:, t], pos=pos0 + t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg)
+    return torch.stack(logits, 1), ms
+
+
+def hold_trees(torch, got, want, what):
+    """`held` on every leaf of two state trees of one structure."""
+    from repro_torch.common.treeutil import flat_paths, tree_leaves
+    if flat_paths(got) != flat_paths(want):
+        raise AssertionError(f"{what}: state trees differ")
+    return {f"{what}/{path}": held(torch, a, b, f"{what} {path}")
+            for path, a, b in zip(flat_paths(got), tree_leaves(got),
+                                  tree_leaves(want))}
+
+
+def model_ssm_path(torch, np):
+    """mamba2-130m through `repro_torch.models.mamba`: `prefill` of
+    2 x 512 tokens, and of 2 x 384 followed by 128 `decode_step`s. Kernel
+    F is every layer's chunked SSD (24 launches a prefill), with its
+    final state handed to decode."""
+    cfg, dims, M, params = family_model(torch, SSM_ARCH, 0)
+    rs = np.random.RandomState(0)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                       (SSM_B, SSM_S))).cuda()
+    batch = {"tokens": toks}
+    (logits, _), n512 = kernel_launches(lambda: M.prefill(params, batch,
+                                                          cfg, dims))
+    (h, states), _ = kernel_launches(lambda: M.forward(
+        params, cfg, dims, tokens=toks, mode="prefill"))
+    prefix = {"tokens": toks[:, :SSM_PREFIX]}
+    (lg384, st384), n384 = kernel_launches(lambda: M.prefill(
+        params, prefix, cfg, dims))
+    step_logits, step_ms = decode_chain(torch, M, params, cfg, dims, st384,
+                                        toks[:, SSM_PREFIX:], SSM_PREFIX)
+    prefill_ms = time_cuda(torch, lambda i: M.prefill(params, batch, cfg,
+                                                      dims), 3)
+    profiles = {
+        "prefill_512": device_share(torch, lambda: M.prefill(
+            params, batch, cfg, dims)),
+        "decode_step": device_share(torch, lambda: M.decode_step(
+            params, st384, cfg, dims, token=toks[:, SSM_PREFIX],
+            pos=SSM_PREFIX))}
+    return dict(cfg=cfg, dims=dims, M=M, params=params, toks=toks,
+                logits=logits, h=h, states=states, lg384=lg384,
+                st384=st384, step_logits=step_logits,
+                launches={"512": n512, "384": n384}), dict(
+        phase="model_ssm_ssd", model=SSM_ARCH, dtype="float32",
+        layers=cfg.n_layers, d_model=cfg.d_model,
+        ssd=[dims.ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state,
+             cfg.ssm.chunk], vocab=cfg.vocab_size,
+        prefill_shapes=[[SSM_B, SSM_S], [SSM_B, SSM_PREFIX]],
+        ssd_launches_a_prefill={"512": n512["mamba2_ssd"],
+                                "384": n384["mamba2_ssd"]},
+        prefill_ms=prefill_ms, decode_steps=SSM_S - SSM_PREFIX,
+        decode_ms_a_step=sum(step_ms[1:]) / (len(step_ms) - 1),
+        decode_ms_first_step=step_ms[0], profiles=profiles)
+
+
+def check_model_ssm(torch, run):
+    """The mamba path held: the 512-token forward's hidden states and
+    every layer's decode state, and the 384-token prefill's logits and
+    states, against the same calls with the plain SSD in F's place; the
+    128 decode logits against the forward's logits at those positions;
+    the last logits against a CPU run of the same prefill. F launched
+    once a layer in each prefill."""
+    from repro_torch.common.treeutil import tree_map
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models.loss import logits_for
+    cfg, dims, M, params = run["cfg"], run["dims"], run["M"], run["params"]
+    toks = run["toks"]
+    for k, n in run["launches"].items():
+        if n["mamba2_ssd"] != cfg.n_layers:
+            raise AssertionError(f"mamba prefill {k}: {n['mamba2_ssd']} "
+                                 f"SSD launches, not one a layer")
+    v = cfg.vocab_size
+    errs = {}
+    with plain_ssd(ssd):
+        h, states = M.forward(params, cfg, dims, tokens=toks,
+                              mode="prefill")
+        lg384, st384 = M.prefill(params, {"tokens": toks[:, :SSM_PREFIX]},
+                                 cfg, dims)
+    errs["hidden_512"] = held(torch, run["h"], h, "mamba hidden 512")
+    errs.update(hold_trees(torch, run["states"], states, "state_512"))
+    errs["logits_384"] = held(torch, run["lg384"][:, :v], lg384[:, :v],
+                              "mamba prefill 384 logits")
+    errs.update(hold_trees(torch, run["st384"], st384, "state_384"))
+    want = logits_for(run["h"][:, SSM_PREFIX:].reshape(-1, cfg.d_model),
+                      params["embed"].T, v)
+    errs["decode_logits"] = held(
+        torch, run["step_logits"].reshape(-1, dims.vocab)[:, :v],
+        want[:, :v], "mamba decode logits vs forward")
+    cpu = tree_map(lambda x: x.cpu(), params)
+    lg_cpu, _ = M.prefill(cpu, {"tokens": toks.cpu()}, cfg, dims)
+    errs["logits_512_card_vs_cpu"] = held(torch, run["logits"][:, :v],
+                                          lg_cpu[:, :v],
+                                          "mamba logits, card vs CPU")
+    return errs
+
+
+def hybrid_decode_state(torch, M, cfg, dims, pre, batch, kv_len):
+    """`init_decode_state` of `kv_len` filled with a prefill's state."""
+    st = M.init_decode_state(cfg, dims, batch, kv_len, "cuda")
+    s = pre["k"].shape[2]
+    st["k"][:, :, :s] = pre["k"]
+    st["v"][:, :, :s] = pre["v"]
+    st["groups_mamba"] = pre["groups_mamba"]
+    st["tail_mamba"] = pre["tail_mamba"]
+    return st
+
+
+def model_hybrid_path(torch, np):
+    """zamba2-7b through `repro_torch.models.hybrid`: `prefill` of 1 x 512
+    tokens (kernel F in each of the 68 Mamba layers, kernel E, causal
+    with head dim 112, in each of the 13 applications of the shared
+    attention), then 4 `decode_step`s."""
+    from repro_torch.common.treeutil import tree_bytes
+    cfg, dims, M, params = family_model(torch, HYBRID_ARCH, 1)
+    rs = np.random.RandomState(1)
+    toks = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (HYBRID_B, HYBRID_S + HYBRID_DECODE))).cuda()
+    batch = {"tokens": toks[:, :HYBRID_S]}
+    (logits, pre), n = kernel_launches(lambda: M.prefill(params, batch, cfg,
+                                                         dims))
+    (h, _), _ = kernel_launches(lambda: M.forward(
+        params, cfg, dims, tokens=batch["tokens"], mode="prefill"))
+    st = hybrid_decode_state(torch, M, cfg, dims, pre, HYBRID_B,
+                             HYBRID_S + HYBRID_DECODE)
+    step_logits, step_ms = decode_chain(torch, M, params, cfg, dims, st,
+                                        toks[:, HYBRID_S:], HYBRID_S)
+    prefill_ms = time_cuda(torch, lambda i: M.prefill(params, batch, cfg,
+                                                      dims), 3)
+    profile = device_share(torch, lambda: M.prefill(params, batch, cfg,
+                                                    dims))
+    groups, per, tail = M._split(cfg)
+    return dict(cfg=cfg, dims=dims, M=M, params=params, toks=toks,
+                logits=logits, pre=pre, h=h, step_logits=step_logits,
+                launches=n), dict(
+        phase="model_hybrid", model=HYBRID_ARCH, dtype="float32",
+        blocks=cfg.n_layers, groups=groups, mamba_a_group=per,
+        tail=tail, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        ssd=[dims.ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state,
+             cfg.ssm.chunk],
+        heads=[cfg.attention.n_heads, cfg.attention.n_kv_heads,
+               cfg.attention.head_dim], vocab=cfg.vocab_size,
+        param_bytes=tree_bytes(params),
+        prefill_shape=[HYBRID_B, HYBRID_S], launches_a_prefill=n,
+        prefill_ms=prefill_ms, decode_steps=HYBRID_DECODE,
+        decode_ms_a_step=sum(step_ms[1:]) / (len(step_ms) - 1),
+        decode_ms_first_step=step_ms[0],
+        profiles={"prefill_512": profile})
+
+
+def check_model_hybrid(torch, run):
+    """The hybrid path held against the same calls with the plain SSD and
+    the plain attention on the card: the prefill's logits, hidden states
+    and every state leaf (each Mamba layer's, the shared attention's K/V
+    of each group), and the 4 decode steps' logits from each run's own
+    state. F once a Mamba layer, E once a group, in the prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    cfg, dims, M, params = run["cfg"], run["dims"], run["M"], run["params"]
+    groups, per, tail = M._split(cfg)
+    want = {"mamba2_ssd": groups * per + tail, "flash_attention": groups}
+    if run["launches"] != want:
+        raise AssertionError(f"hybrid prefill: launches {run['launches']}, "
+                             f"not {want}")
+    toks, v = run["toks"], cfg.vocab_size
+    with plain_ssd(ssd), plain_attention(fa):
+        logits, pre = M.prefill(params, {"tokens": toks[:, :HYBRID_S]}, cfg,
+                                dims)
+        h, _ = M.forward(params, cfg, dims, tokens=toks[:, :HYBRID_S],
+                         mode="prefill")
+    st = hybrid_decode_state(torch, M, cfg, dims, pre, HYBRID_B,
+                             HYBRID_S + HYBRID_DECODE)
+    step_logits, _ = decode_chain(torch, M, params, cfg, dims, st,
+                                  toks[:, HYBRID_S:], HYBRID_S)
+    errs = {"logits": held(torch, run["logits"][:, :v], logits[:, :v],
+                           "hybrid prefill logits"),
+            "hidden": held(torch, run["h"], h, "hybrid hidden")}
+    errs.update(hold_trees(torch, run["pre"], pre, "state"))
+    errs["decode_logits"] = held(torch, run["step_logits"][..., :v],
+                                 step_logits[..., :v],
+                                 "hybrid decode logits")
+    return errs
+
+
+def model_encdec_path(torch, np):
+    """seamless-m4t-large-v2 through `repro_torch.models.encdec`: frame
+    embeddings [2, 300, 1024] from a seed, the BOS `prefill` (kernel E in
+    every attention: 24 encoder self-attentions, non-causal 300 x 300; 24
+    decoder self-attentions, causal 1 x 1; 24 cross-attentions,
+    non-causal 1 x 300: 72 launches), then 8 `decode_step`s."""
+    from repro_torch.common.treeutil import tree_bytes
+    cfg, dims, M, params = family_model(torch, ENCDEC_ARCH, 2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    enc = torch.randn((ENCDEC_B, ENCDEC_T, cfg.d_model), generator=g,
+                      device="cuda")
+    rs = np.random.RandomState(2)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                       (ENCDEC_B, ENCDEC_DECODE))).cuda()
+    batch = {"enc_embeds": enc}
+    (logits, pre), n = kernel_launches(lambda: M.prefill(params, batch, cfg,
+                                                         dims))
+    enc_h, n_enc = kernel_launches(lambda: M.encode(params, cfg, dims, enc))
+    st = M.init_decode_state(cfg, dims, ENCDEC_B, 1 + ENCDEC_DECODE,
+                             enc_len=ENCDEC_T, device="cuda")
+    for k in ("k", "v"):
+        st[k][:, :, :1] = pre[k]
+    st["ck"], st["cv"] = pre["ck"], pre["cv"]
+    step_logits, step_ms = decode_chain(torch, M, params, cfg, dims, st,
+                                        toks, 1)
+    prefill_ms = time_cuda(torch, lambda i: M.prefill(params, batch, cfg,
+                                                      dims), 3)
+    profile = device_share(torch, lambda: M.prefill(params, batch, cfg,
+                                                    dims))
+    return dict(cfg=cfg, dims=dims, M=M, params=params, enc=enc, toks=toks,
+                logits=logits, pre=pre, enc_h=enc_h, step_logits=step_logits,
+                launches=n, encoder_launches=n_enc), dict(
+        phase="model_encdec_flash", model=ENCDEC_ARCH, dtype="float32",
+        encoder_layers=cfg.n_encoder_layers, decoder_layers=cfg.n_layers,
+        d_model=cfg.d_model, d_ff=cfg.d_ff,
+        heads=[cfg.attention.n_heads, cfg.attention.n_kv_heads,
+               cfg.attention.head_dim], vocab=cfg.vocab_size,
+        param_bytes=tree_bytes(params),
+        enc_embeds=[ENCDEC_B, ENCDEC_T, cfg.d_model],
+        flash_launches_a_prefill=n["flash_attention"],
+        flash_launches_encoder=n_enc["flash_attention"],
+        prefill_ms=prefill_ms, decode_steps=ENCDEC_DECODE,
+        decode_ms_a_step=sum(step_ms[1:]) / (len(step_ms) - 1),
+        decode_ms_first_step=step_ms[0],
+        profiles={"prefill_bos": profile})
+
+
+def check_model_encdec(torch, run):
+    """The encoder-decoder path held against the same calls with the plain
+    attention in E's place on the card: the encoder's output, the BOS
+    prefill's logits and decode state (self and cross K/V of every
+    layer), and the 8 decode steps' logits from each run's own state. E
+    launched 72 times in the prefill, 24 of them in the encoder."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg, dims, M, params = run["cfg"], run["dims"], run["M"], run["params"]
+    want = 2 * cfg.n_layers + cfg.n_encoder_layers
+    if (run["launches"]["flash_attention"] != want
+            or run["encoder_launches"]["flash_attention"]
+            != cfg.n_encoder_layers):
+        raise AssertionError(f"encdec prefill: {run['launches']} launches "
+                             f"({run['encoder_launches']} in the encoder), "
+                             f"not {want} ({cfg.n_encoder_layers})")
+    v = cfg.vocab_size
+    with plain_attention(fa):
+        logits, pre = M.prefill(params, {"enc_embeds": run["enc"]}, cfg,
+                                dims)
+        enc_h = M.encode(params, cfg, dims, run["enc"])
+    st = M.init_decode_state(cfg, dims, ENCDEC_B, 1 + ENCDEC_DECODE,
+                             enc_len=ENCDEC_T, device="cuda")
+    for k in ("k", "v"):
+        st[k][:, :, :1] = pre[k]
+    st["ck"], st["cv"] = pre["ck"], pre["cv"]
+    step_logits, _ = decode_chain(torch, M, params, cfg, dims, st,
+                                  run["toks"], 1)
+    errs = {"encoder": held(torch, run["enc_h"], enc_h, "encoder output"),
+            "logits": held(torch, run["logits"][:, :v], logits[:, :v],
+                           "encdec prefill logits")}
+    errs.update(hold_trees(torch, run["pre"], pre, "state"))
+    errs["decode_logits"] = held(torch, run["step_logits"][..., :v],
+                                 step_logits[..., :v],
+                                 "encdec decode logits")
+    return errs
+
+
+def time_family_kernels(torch):
+    """F and E at the shapes the three family paths give them, beside
+    their plain versions, bounds and, for E, SDPA (CUDA events; these
+    launches are not counted): F with its final state (the model route)
+    at mamba2-130m's [2, 512, 24, 64] N=128 and zamba2-7b's
+    [1, 512, 112, 64] N=64, chunk 128; E in float32 at the encoder's
+    [32, 300, 64] non-causal (ragged: `flash_attention_ragged`) and at
+    zamba2's shared attention [32, 512, 112] causal. Each time is held
+    against its plain version first."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, (b, s, h, p, n) in (("mamba2_130m", (2, 512, 24, 64, 128)),
+                                  ("zamba2_7b", (1, 512, 112, 64, 64))):
+        args = ssd_inputs(torch, g, b, s, h, p, n)
+        y, st = ssd.mamba2_ssd_with_state(*args, chunk=SSD_CHUNK)
+        yw, stw = ssd.mamba2_ssd_with_state_torch(*args, chunk=SSD_CHUNK)
+        err = max(close(torch, y, yw, *SSD_TOL, f"ssd {name} y"),
+                  close(torch, st, stw, *SSD_TOL, f"ssd {name} state"))
+        fl = ssd.operations(b, s, h, p, n, SSD_CHUNK)
+        # x, dt, A, B, C read once; y and the final state written once
+        nbytes = 4 * (2 * args[0].numel() + args[1].numel() + h
+                      + 2 * args[3].numel() + st.numel())
+        (ms, b_by), how = min(
+            (bound(nbytes, fl, FP32_FLOPS), "float32 CUDA cores"),
+            (bound(nbytes, 3 * fl, TF32_TC_FLOPS), "3xTF32 tensor cores"))
+        out[f"mamba2_ssd_{name}"] = dict(
+            x=[b, s, h, p], d_state=n, chunk=SSD_CHUNK, with_state=True,
+            max_abs_err=err, operations=fl, bytes=nbytes,
+            ms=time_cuda(torch, lambda i: ssd.mamba2_ssd_with_state(
+                *args, chunk=SSD_CHUNK), 50, stall_ms=5),
+            plain_ms=time_cuda(torch, lambda i:
+                               ssd.mamba2_ssd_with_state_torch(
+                                   *args, chunk=SSD_CHUNK), 10, stall_ms=5),
+            bound_ms=ms, bound_by=b_by, bound_note=how, library_ms=None)
+    for name, (bh, sq, d, causal) in (
+            ("encoder_300", (32, ENCDEC_T, 64, False)),
+            ("zamba2_shared_512", (32, HYBRID_S, 112, True))):
+        a = [torch.randn((bh, sq, d), generator=g, device="cuda")
+             for _ in range(3)]
+        fn = flash_entry(fa, sq, sq)
+        err = close(torch, fn(*a, causal=causal),
+                    fa.flash_attention_torch(*a, causal=causal),
+                    *FLASH_TOL["float32"], f"flash {name}")
+        fl = fa.operations(bh, sq, sq, d, causal, ragged=True)
+        nbytes = 4 * a[0].numel() * 4
+        (ms, b_by), how = min(
+            (bound(nbytes, fl, FP32_FLOPS), "float32 CUDA cores"),
+            (bound(nbytes, 3 * fl, TF32_TC_FLOPS), "3xTF32 tensor cores"))
+        out[f"flash_attention_{name}"] = dict(
+            shape=[bh, sq, d], dtype="float32", causal=causal,
+            entry=fn.__name__, max_abs_err=err, operations=fl,
+            ms=time_cuda(torch, lambda i: fn(*a, causal=causal), 50,
+                         stall_ms=5),
+            plain_ms=time_cuda(torch, lambda i: fa.flash_attention_torch(
+                *a, causal=causal), 20, stall_ms=5),
+            library_ms=time_cuda(torch, lambda i:
+                                 F.scaled_dot_product_attention(
+                                     *[x[None] for x in a],
+                                     is_causal=causal), 50, stall_ms=5),
+            bound_ms=ms, bound_by=b_by, bound_note=how)
+    return out
+
+
 def sass_counts(path):
     """Tensor-core instructions counted in `cuobjdump -sass` of the built
     library: HGMMA (`wgmma`) in kernel E's bf16 function, HMMA
@@ -1909,6 +2400,20 @@ def main() -> int:
     se["seconds_with_cpu_check"] = round(time.perf_counter() - t_serve, 3)
     emit(dict(se, launches=paths["serve_engine"]))
     del serve_run
+    for label, expects, path, check in (
+            ("model_ssm_ssd", "mamba2_ssd", model_ssm_path,
+             check_model_ssm),
+            ("model_hybrid", "mamba2_ssd+flash_attention",
+             model_hybrid_path, check_model_hybrid),
+            ("model_encdec_flash", "flash_attention", model_encdec_path,
+             check_model_encdec)):
+        t_path = time.perf_counter()
+        run, rep = drive(label, expects, path, torch, np)
+        rep["max_abs_err"] = check(torch, run)
+        rep["seconds"] = round(time.perf_counter() - t_path, 3)
+        emit(dict(rep, launches=paths[label]))
+        del run
+        torch.cuda.empty_cache()
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)
@@ -1922,6 +2427,8 @@ def main() -> int:
     tf = time_float_kernels(torch, dec_in, qkv, ssd_args)
     tmk = time_model_kernels(torch)
     tf["model_paths"] = tmk
+    tfam = time_family_kernels(torch)
+    tf["family_paths"] = tfam
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
           "megakernel": tm, "megakernel_paper_grid": tm_paper,
           "open_megakernel": to, "open_megakernel_open_grid": to_grid, **tf,
@@ -2027,7 +2534,7 @@ def main() -> int:
          "f32_bound_by": fl_32["bound_by"],
          "f32_bound_note": fl_32["bound_note"],
          "f32_library_ms": fl_32["library_ms"],
-         "model_path": {k: v for k, v in tmk.items()
+         "model_path": {k: v for k, v in {**tmk, **tfam}.items()
                         if k.startswith("flash")},
          "sass_HGMMA_bf16": sass["flash_bf16_HGMMA"],
          "sass_HMMA_f32": sass["flash_f32_HMMA"]},
@@ -2044,6 +2551,8 @@ def main() -> int:
          "bound_ms": tf["mamba2_ssd"]["bound_ms"],
          "bound_by": tf["mamba2_ssd"]["bound_by"],
          "bound_note": tf["mamba2_ssd"]["bound_note"],
+         "model_paths": {k: v for k, v in tfam.items()
+                         if k.startswith("mamba2_ssd")},
          "heads_per_block": ssd.HEADS_PER_BLOCK,
          "sass_HMMA": sass["ssd_HMMA"], "library_ms": None,
          "library_note": "PyTorch has no SSD scan"}]})

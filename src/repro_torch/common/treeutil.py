@@ -33,6 +33,12 @@ def tree_map(fn, tree):
     return None if tree is None else fn(tree)
 
 
+def tree_index(tree, idx):
+    """Every leaf indexed by `idx` (an int or a tuple): one layer's params
+    or state out of a stack of them."""
+    return tree_map(lambda x: x[idx], tree)
+
+
 def tree_param_count(tree) -> int:
     return sum(x.numel() for x in tree_leaves(tree))
 

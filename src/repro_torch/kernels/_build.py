@@ -122,7 +122,7 @@ def _bind(lib: ctypes.CDLL) -> None:
             [p] * 9 + [i] * 7 + [p]
         getattr(lib, f"flash_attention_{dt}_launch").argtypes = \
             [p] * 4 + [i] * 7 + [p]
-    lib.mamba2_ssd_f32_launch.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.mamba2_ssd_f32_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     for name in ("kv_quant_f32", "kv_quant_bf16", "paged_attention_f32",
                  "paged_attention_bf16", "flash_attention_f32",
                  "flash_attention_bf16", "mamba2_ssd_f32"):

@@ -7,7 +7,9 @@
 //
 // q [BH, Sq, D], k/v [BH, Skv, D] (bfloat16 or float32, kv GQA-expanded,
 // D <= 128 and a multiple of 4) -> [BH, Sq, D] of q's dtype. q and kv
-// blocks of min(128, S) rows as the TPU kernel's; causal means
+// blocks of min(128, S) rows as the TPU kernel's (the models' route,
+// `flash_attention_ragged`, pads q to such blocks and passes a key block
+// of 1: keys of any length, see `launch`); causal means
 // qpos >= kpos counted from 0, masked scores are -1e30, the softmax is
 // taken in float32 and out = acc / max(l, 1e-30). Under causality a kv
 // tile is skipped by the rows it lies wholly above (a warpgroup's 64 rows
@@ -623,6 +625,12 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
   }
 }
 
+// q_blk must divide Sq; kv_blk is not used by the kernels, only checked
+// against Skv (the TPU kernel's contract, which `flash_attention` keeps).
+// Any Skv is computed exactly: `tiles_needed` rounds up, `load_bf16` /
+// `load_f32` copy the rows below Skv and zero-fill the rest (a zero-size
+// `cp.async` reads nothing), and `online_softmax` masks every key >= Skv,
+// so a key block of 1 (the models' route) takes ragged lengths.
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const T*, T*, int, int, int,
                           int, int, float),

@@ -6,7 +6,8 @@
 // repro_torch/kernels/ref.py; wrapper: repro_torch/kernels/mamba2_ssd.py.
 //
 // x [B, S, H, P], dt [B, S, H], A [H], B/C [B, S, N], all float32 ->
-// y [B, S, H, P]. Per (batch, chunk c of L tokens, head), with cum the
+// y [B, S, H, P] and, where asked for, the final state h_{nc-1}
+// [B, H, P, N] (what a Mamba layer's prefill hands to its decode). Per (batch, chunk c of L tokens, head), with cum the
 // within-chunk cumulative sum of dt * A[h], total = cum[L-1], dtx = dt * x:
 //   y[i] = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dtx_j      (diagonal)
 //          + exp(cum_i) (C_i . h_{c-1})                      (carried state)
@@ -33,7 +34,8 @@
 //   S_c into a ring of two states per (batch, head) and raises the flag
 //   to c + 1 (a barrier, then one thread's fence and release store, as a
 //   grid barrier does) - before its y products, so the chain waits on
-//   loads, not on math. Every read of h_{c-1} (the update and the
+//   loads, not on math. The last chunk's block writes its h_c to the
+//   final-state output instead, when the caller passes one. Every read of h_{c-1} (the update and the
 //   registers for h.C^T) precedes the flag, and chunk c + 1 writes slot
 //   (c - 1) & 1 only after it, so two slots suffice.
 // * Every product is 3xTF32 on mma.sync.m16n8k8 (a_lo.b_hi + a_hi.b_lo +
@@ -83,8 +85,9 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y, float* ring,
-    int* flags, int Bsz, int S, int H, int P, int N, int L, int hpb) {
+    const float* __restrict__ Cm, float* __restrict__ y,
+    float* __restrict__ hfin, float* ring, int* flags, int Bsz, int S, int H,
+    int P, int N, int L, int hpb) {
   extern __shared__ __align__(16) float smem[];
   float* Cs = smem;                 // [L][CST]
   float* Bs = Cs + SSD_MAXL * CST;  // [L][BST]
@@ -268,8 +271,10 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
         }
       }
     }
-    if (!last && p_on) {
-      float* hp = ring + (slot0 + (c & 1)) * hstride;
+    // h_c into the ring for chunk c + 1, or the last one into hfin
+    float* const hlast = hfin ? hfin + ((size_t)b * H + h) * hstride : nullptr;
+    if ((!last || hlast) && p_on) {
+      float* hp = last ? hlast : ring + (slot0 + (c & 1)) * hstride;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = 8 * (8 * nh + j) + 2 * t;
@@ -368,14 +373,15 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
 
 }  // namespace
 
+// hfin: the final state [B, H, P, N] float32, or null (not written);
 // ring: [B, H, 2, P, N] float32 scratch; flags: 1 + B*H int32, zeroed by
 // the caller before each launch (the ticket counter, then one flag a
 // (batch, head)); hpb: heads a block.
 extern "C" int mamba2_ssd_f32_launch(const void* x, const void* dt,
                                      const void* A, const void* Bm,
-                                     const void* Cm, void* y, void* ring,
-                                     void* flags, int Bsz, int S, int H,
-                                     int P, int N, int L, int hpb,
+                                     const void* Cm, void* y, void* hfin,
+                                     void* ring, void* flags, int Bsz, int S,
+                                     int H, int P, int N, int L, int hpb,
                                      void* stream) {
   if (Bsz == 0 || H == 0 || S == 0) return 0;
   if (L <= 0 || S % L != 0 || L > SSD_MAXL || P > SSD_MAXP ||
@@ -389,7 +395,7 @@ extern "C" int mamba2_ssd_f32_launch(const void* x, const void* dt,
   const int blocks = Bsz * (S / L) * ((H + hpb - 1) / hpb);
   mamba2_ssd_kernel<<<blocks, SSD_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      (const float*)Cm, (float*)y, (float*)ring, (int*)flags, Bsz, S, H, P,
-      N, L, hpb);
+      (const float*)Cm, (float*)y, (float*)hfin, (float*)ring, (int*)flags,
+      Bsz, S, H, P, N, L, hpb);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,12 @@ Beside the kernel, as beside every kernel of this package:
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
+`mamba2_ssd_with_state` also returns the final state [B, H, P, N] (the
+plain version: `ssd_chunked`'s second output): the route of the models'
+Mamba layers (`models.layers.ssd_chunked` on CUDA tensors), whose
+prefill hands that state to decode. It costs B·H·P·N·4 bytes of writes
+more and no operations.
+
 What bounds it on an H100: operations. At mamba2-130m widths (L=128,
 P=64, N=128, 24 heads, batch 8 x 4096 tokens) the call needs ~33 GFLOP
 (`operations`) against 0.44 GB of x, y, B, C and dt moved. The kernel
@@ -56,6 +62,7 @@ MAX_L, MAX_P, MAX_N = 128, 64, 128
 HEADS_PER_BLOCK = 8
 
 mamba2_ssd_torch = ref.mamba2_ssd
+mamba2_ssd_with_state_torch = ref.mamba2_ssd_with_state
 
 
 def operations(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
@@ -75,9 +82,21 @@ def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int = 128):
     y [B,S,H,P]. `min(chunk, S)` must divide S; on the card it is at
     most `MAX_L`, with P <= `MAX_P` and N <= `MAX_N`, both multiples of
     4."""
+    return _run("mamba2_ssd", x, dt, A, B_in, C_in, chunk, False)
+
+
+def mamba2_ssd_with_state(x, dt, A, B_in, C_in, *, chunk: int = 128):
+    """`mamba2_ssd` with the final state: returns (y [B,S,H,P], state
+    [B,H,P,N] float32), the state after the last token, which a Mamba
+    layer's prefill hands to its decode (`models.layers.ssd_chunked`'s
+    second output). The kernel's last chunk of each (batch, head) writes
+    it; `mamba2_ssd` passes no state and skips that write."""
+    return _run("mamba2_ssd_with_state", x, dt, A, B_in, C_in, chunk, True)
+
+
+def _run(fn, x, dt, A, B_in, C_in, chunk, with_state):
     global LAUNCHES
     from repro_torch.kernels import _build
-    fn = "mamba2_ssd"
     f32 = (torch.float32,)
     _build.check_tensor(fn, "x", x, dtypes=f32, ndim=4)
     for name, t, nd in (("dt", dt, 3), ("A", A, 1), ("B_in", B_in, 3),
@@ -97,6 +116,9 @@ def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int = 128):
     if s % l:
         raise ValueError(f"{fn}: chunk {l} does not divide S={s}")
     if x.device.type == "cpu":
+        if with_state:
+            return mamba2_ssd_with_state_torch(x, dt, A, B_in, C_in,
+                                               chunk=chunk)
         return mamba2_ssd_torch(x, dt, A, B_in, C_in, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
@@ -105,15 +127,18 @@ def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int = 128):
                          f"{MAX_P} and N <= {MAX_N} (P, N multiples of 4); "
                          f"got chunk={l}, P={p}, N={n}")
     y = torch.empty_like(x)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if with_state else None)
     if y.numel() == 0:
-        return y
+        return (y, state) if with_state else y
     ring = torch.empty((b, h, 2, p, n), dtype=torch.float32, device=x.device)
     flags = torch.zeros(1 + b * h, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         _build.launch("mamba2_ssd_f32_launch", x.data_ptr(), dt.data_ptr(),
                       A.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
-                      y.data_ptr(), ring.data_ptr(), flags.data_ptr(), b, s,
-                      h, p, n, l, min(HEADS_PER_BLOCK, h),
+                      y.data_ptr(), state.data_ptr() if with_state else 0,
+                      ring.data_ptr(), flags.data_ptr(), b, s, h, p, n, l,
+                      min(HEADS_PER_BLOCK, h),
                       torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
-    return y
+    return (y, state) if with_state else y

@@ -63,7 +63,12 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale,
 def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int):
     """SSD chunked scan oracle. x: [B,S,H,P]; dt: [B,S,H] (>0, post-softplus);
     A: [H] (<0); B_in/C_in: [B,S,N]. Returns y [B,S,H,P] (no D residual)."""
-    from repro_torch.models.layers import ssd_chunked
-    y, _ = ssd_chunked(x, dt, A, B_in, C_in,
-                       torch.zeros(A.shape, device=A.device), chunk)
-    return y
+    return mamba2_ssd_with_state(x, dt, A, B_in, C_in, chunk=chunk)[0]
+
+
+def mamba2_ssd_with_state(x, dt, A, B_in, C_in, *, chunk: int):
+    """`mamba2_ssd` and the final state [B,H,P,N] float32 (the port's own
+    oracle: `ssd_chunked`'s two outputs with a zero residual)."""
+    from repro_torch.models.layers import ssd_chunked_plain
+    return ssd_chunked_plain(x, dt, A, B_in, C_in,
+                             torch.zeros(A.shape, device=A.device), chunk)

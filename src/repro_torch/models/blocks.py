@@ -1,6 +1,6 @@
-"""Parameter init + apply for the reusable blocks (attention, MLP, MoE),
-mirroring `repro/models/blocks.py`. Model families compose these over a
-stacked layer axis.
+"""Parameter init + apply for the reusable blocks (attention,
+cross-attention, MLP, MoE, Mamba2), mirroring `repro/models/blocks.py`.
+Model families compose these over a stacked layer axis.
 
 Conventions:
   * params are plain nested dicts of tensors, stacked along a leading
@@ -13,7 +13,6 @@ Conventions:
 
 The reference's sharding annotations and its `shard_map` MoE branch have
 no counterpart on one card: `apply_moe` is the reference's no-mesh path.
-The mamba and cross-attention blocks come with their families.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.dims import Dims
@@ -103,6 +103,35 @@ def apply_attn(p: dict, h: torch.Tensor, dims: Dims, *, sin, cos,
     return h + y, new_cache
 
 
+def cross_kv(p: dict, memory: torch.Tensor, dims: Dims):
+    """Project encoder memory to (k, v) once (reused across decode steps)."""
+    dt = memory.dtype
+    k = L.eins("bsd,dhk->bshk", memory, p["wk"])
+    v = L.eins("bsd,dhk->bshk", memory, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v
+
+
+def apply_cross_attn(p: dict, h: torch.Tensor, dims: Dims, *, kv: tuple,
+                     mode: str = "train") -> torch.Tensor:
+    """Residual cross-attention: q from h, (k, v) precomputed from memory.
+    No RoPE (absolute memory positions). decode: h [B,1,D]; otherwise a
+    non-causal `chunked_attention` (kernel E on the card)."""
+    x = L.rmsnorm(h, p["ln"], dims.cfg.norm_eps)
+    q = L.eins("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    k, v = kv
+    if mode == "decode":
+        out = L.decode_attention(q, k, v, k.shape[1], dims.q_group)
+    else:
+        ke, ve = L._expand_kv(k, dims.q_group), L._expand_kv(v, dims.q_group)
+        out = L.chunked_attention(q, ke, ve, causal=False)
+    return h + L.eins("bshk,hkd->bsd", out, p["wo"])
+
+
 # ==================================================================== MLP
 
 def init_mlp(gen: torch.Generator, d: int, f: int, dims: Dims, device,
@@ -176,3 +205,139 @@ def apply_moe(p: dict, h: torch.Tensor, dims: Dims):
         sh = p["shared"]
         y = y + L.gated_mlp(x, sh["wi"], sh["wg"], sh["wd"])
     return h + y, aux * m.router_aux_weight, dropped
+
+
+# ================================================================== mamba2
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float, device):
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device,
+                                       dtype=torch.float32)
+
+
+def init_mamba(gen: torch.Generator, dims: Dims, device,
+               out_scale: float) -> dict:
+    """The reference's `init_mamba` drawn from `gen`. (The reference draws
+    conv_B and conv_C from one key, so they start equal; here each has
+    its own draws. The parity tests convert the reference's params.)"""
+    cfg = dims.cfg
+    s = cfg.ssm
+    d, n, w = cfg.d_model, s.d_state, s.d_conv
+    di, nh = dims.d_inner, dims.ssm_heads
+    nh_logical = s.n_heads(d)
+    pdt = dims.param_dtype
+    chmask = (torch.arange(di, device=device)
+              < nh_logical * s.head_dim).to(pdt)
+    hmask = torch.arange(nh, device=device) < nh_logical
+    a_init = torch.log(_uniform(gen, (nh,), 1.0, 16.0, device))
+    dtb = torch.log(torch.expm1(_uniform(gen, (nh,), 1e-3, 0.1, device)))
+    return {
+        "ln": torch.ones((d,), dtype=pdt, device=device),
+        "wz": _norm(gen, (d, di), pdt, device) * chmask[None, :],
+        "wx": _norm(gen, (d, di), pdt, device) * chmask[None, :],
+        "wB": _norm(gen, (d, n), pdt, device),
+        "wC": _norm(gen, (d, n), pdt, device),
+        "wdt": _norm(gen, (d, nh), pdt, device) * hmask[None, :].to(pdt),
+        "dt_bias": torch.where(hmask, dtb, -10.0).float(),
+        "A_log": torch.where(hmask, a_init, 0.0).float(),
+        "Dres": torch.where(hmask, 1.0, 0.0).float(),
+        "conv_x": _norm(gen, (di, w), pdt, device, 0.5) * chmask[:, None],
+        "conv_B": _norm(gen, (n, w), pdt, device, 0.5),
+        "conv_C": _norm(gen, (n, w), pdt, device, 0.5),
+        "norm_w": torch.ones((di,), dtype=pdt, device=device),
+        "wo": _norm(gen, (di, d), pdt, device, out_scale) * chmask[:, None],
+    }
+
+
+def _mamba_project(p, x, dims: Dims):
+    z = L.eins("bsd,de->bse", x, p["wz"])
+    xin = L.eins("bsd,de->bse", x, p["wx"])
+    b_in = L.eins("bsd,dn->bsn", x, p["wB"])
+    c_in = L.eins("bsd,dn->bsn", x, p["wC"])
+    dt = L.eins("bsd,dh->bsh", x, p["wdt"])
+    return z, xin, b_in, c_in, dt
+
+
+def _silu_as(x: torch.Tensor) -> torch.Tensor:
+    """silu in float32, cast back to x's dtype."""
+    return F.silu(x.float()).to(x.dtype)
+
+
+def apply_mamba(p: dict, h: torch.Tensor, dims: Dims, *,
+                return_state: bool = False):
+    """Mamba2 block, train/prefill path (chunked SSD: kernel F on the
+    card). h: [B,S,D].
+
+    Returns (h', state): with return_state, `state` is the decode state
+    (ssd + conv tails) so prefill can hand off to decode_step; without,
+    the SSD's final state alone, as the reference returns it.
+    """
+    cfg = dims.cfg
+    s = cfg.ssm
+    nh_logical = s.n_heads(cfg.d_model)
+    x = L.rmsnorm(h, p["ln"], cfg.norm_eps)
+    z, xin_raw, b_raw, c_raw, dt = _mamba_project(p, x, dims)
+    xin = _silu_as(L.causal_depthwise_conv(xin_raw, p["conv_x"]))
+    b_in = _silu_as(L.causal_depthwise_conv(b_raw, p["conv_B"]))
+    c_in = _silu_as(L.causal_depthwise_conv(c_raw, p["conv_C"]))
+    bsz, seq = xin.shape[:2]
+    xh = xin.reshape(bsz, seq, dims.ssm_heads, s.head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, last_state = L.ssd_chunked(xh, dt, A, b_in, c_in, p["Dres"], s.chunk)
+    y = y.reshape(bsz, seq, dims.d_inner)
+    y = L.gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps,
+                        n=nh_logical * s.head_dim)
+    new_h = h + L.eins("bse,ed->bsd", y, p["wo"])
+    if not return_state:
+        return new_h, last_state
+    w = s.d_conv
+
+    def tail(t):                          # the last W-1 inputs, [B,C,W-1]
+        return t[:, -(w - 1):, :].transpose(1, 2).float()
+
+    return new_h, {"ssd": last_state, "conv_x": tail(xin_raw),
+                   "conv_B": tail(b_raw), "conv_C": tail(c_raw)}
+
+
+def mamba_state_shapes(dims: Dims, batch: int, device="cuda") -> dict:
+    """Zero decode state for ONE mamba layer."""
+    s = dims.cfg.ssm
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {"ssd": z(batch, dims.ssm_heads, s.head_dim, s.d_state),
+            "conv_x": z(batch, dims.d_inner, s.d_conv - 1),
+            "conv_B": z(batch, s.d_state, s.d_conv - 1),
+            "conv_C": z(batch, s.d_state, s.d_conv - 1)}
+
+
+def _conv_step(state: torch.Tensor, xt: torch.Tensor, w: torch.Tensor):
+    """state [B,C,W-1], xt [B,C], w [C,W] -> (y [B,C], new_state)."""
+    full = torch.cat([state, xt[:, :, None].to(state.dtype)], dim=2)
+    y = torch.einsum("bcw,cw->bc", full, w.to(state.dtype))
+    return y.to(xt.dtype), full[:, :, 1:]
+
+
+def apply_mamba_decode(p: dict, h: torch.Tensor, dims: Dims, state: dict):
+    """One-token mamba step (plain torch). h: [B,1,D]; state from
+    mamba_state_shapes. Returns (h', new_state)."""
+    cfg = dims.cfg
+    s = cfg.ssm
+    nh_logical = s.n_heads(cfg.d_model)
+    x = L.rmsnorm(h, p["ln"], cfg.norm_eps)
+    z, xin, b_in, c_in, dt = _mamba_project(p, x, dims)
+    xt, conv_x = _conv_step(state["conv_x"], xin[:, 0], p["conv_x"])
+    bt, conv_B = _conv_step(state["conv_B"], b_in[:, 0], p["conv_B"])
+    ct, conv_C = _conv_step(state["conv_C"], c_in[:, 0], p["conv_C"])
+    xh = _silu_as(xt).reshape(-1, dims.ssm_heads, s.head_dim)
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, ssd = L.ssd_decode_step(xh, dtv, A, _silu_as(bt), _silu_as(ct),
+                               p["Dres"], state["ssd"])
+    y = y.reshape(-1, 1, dims.d_inner)
+    y = L.gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps,
+                        n=nh_logical * s.head_dim)
+    out = torch.einsum("bse,ed->bsd", y, p["wo"].to(y.dtype))
+    return h + out, {"ssd": ssd, "conv_x": conv_x, "conv_B": conv_B,
+                     "conv_C": conv_C}

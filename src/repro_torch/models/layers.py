@@ -7,10 +7,13 @@ inputs' dtype with float32 softmax/norm accumulators, as in the reference.
 The reference's sharding annotations (`shd`) have no counterpart on one
 card and are dropped.
 
-`chunked_attention` is where kernel E enters the model: on CUDA tensors
-it launches `repro_torch.kernels.flash_attention` (or raises), on CPU
-tensors it runs the reference's online-softmax loop. The Mamba2 layers
-other than `ssd_chunked` come with the mamba family.
+`chunked_attention` is where kernel E enters the model, and
+`ssd_chunked` where kernel F does: on CUDA tensors they launch
+`repro_torch.kernels.flash_attention` / `mamba2_ssd` (or raise), on CPU
+tensors they run the reference's loops (`ssd_chunked_plain`, the plain
+SSD, is also F's oracle). The other Mamba2 layers (depthwise conv, the
+one-token SSD step, the gated norm) are plain torch on every device, as
+they are plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_ssd as _ssd
 
 # --------------------------------------------------------------------- norms
 
@@ -144,41 +148,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
     """`chunked_attention` on the card: kernel E on [B·Hq, S, D], K/V
-    expanded to the q heads. E's q and kv blocks are `min(128, S)` rows
-    and must divide the lengths. A causal self-attention (`q_offset` 0,
-    Sq == Skv) of another length is padded at the end to a multiple of 128
-    and sliced back; that is exact, since no real query sees a key past
-    itself. Any other call E cannot take raises `ValueError`."""
+    expanded to the q heads, through `flash_attention_ragged`, which
+    takes every length the reference does (q padded at the end to E's
+    128-row blocks and sliced back, keys at their own length), causal or
+    not: the encoder's and cross-attention's non-causal calls and the
+    decoders' causal ones. E counts query positions from 0: a `q_offset`
+    raises `ValueError`."""
     b, sq, hq, d = q.shape
-    skv = k.shape[1]
     if q_offset:
         raise ValueError(f"chunked_attention: kernel E counts query "
                          f"positions from 0; q_offset={q_offset} is not "
                          f"supported on the card")
-    pad = 0
-    try:
-        _fa.blocks(sq, skv)
-    except ValueError as e:
-        if not (causal and sq == skv):
-            why = "the call is non-causal" if not causal else "Sq != Skv"
-            raise ValueError(
-                f"chunked_attention: lengths Sq={sq}, Skv={skv} are not "
-                f"multiples of kernel E's {_fa.BLOCK}-row blocks and cannot "
-                f"be padded exactly: {why} (only a causal call with "
-                f"Sq == Skv can)") from e
-        pad = -sq % _fa.BLOCK
     group = hq // k.shape[2]
     k, v = _expand_kv(k, group), _expand_kv(v, group)
 
-    def heads_first(x):                  # [B,S,H,D] -> [B·H, S+pad, D]
-        x = x.permute(0, 2, 1, 3)
-        if pad:
-            x = F.pad(x, (0, 0, 0, pad))
-        return x.reshape(b * hq, x.shape[2], d).contiguous()
+    def heads_first(x):                  # [B,S,H,D] -> [B·H, S, D]
+        return x.permute(0, 2, 1, 3).reshape(b * hq, x.shape[1],
+                                             d).contiguous()
 
-    out = _fa.flash_attention(heads_first(q), heads_first(k), heads_first(v),
-                              causal=causal)
-    return out[:, :sq].reshape(b, hq, sq, d).permute(0, 2, 1, 3)
+    out = _fa.flash_attention_ragged(heads_first(q), heads_first(k),
+                                     heads_first(v), causal=causal)
+    return out.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -295,6 +285,17 @@ def moe_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
 
 # -------------------------------------------------------------------- mamba2
 
+def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over the sequence. x: [B,S,C]; w: [C,W]."""
+    width = w.shape[-1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        shift = width - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, :x.shape[1]]
+        out = out + xi.float() * w[:, i].float()
+    return out.to(x.dtype)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B_in: torch.Tensor, C_in: torch.Tensor, D_res: torch.Tensor,
                 chunk: int, init_state: Optional[torch.Tensor] = None):
@@ -303,7 +304,41 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x: [B,S,H,P]; dt: [B,S,H] (post-softplus, >0); A: [H] (negative);
     B_in/C_in: [B,S,N] (single group); D_res: [H].
     Returns y [B,S,H,P] and final state [B,H,P,N].
+
+    On CUDA tensors: kernel F (`_ssd_on_card`), which raises where it
+    cannot compute the same function. On CPU tensors: the reference's
+    chunked form, `ssd_chunked_plain`.
     """
+    if x.device.type == "cuda":
+        return _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state)
+    if x.device.type != "cpu":
+        raise ValueError(f"ssd_chunked: unsupported device {x.device}")
+    return ssd_chunked_plain(x, dt, A, B_in, C_in, D_res, chunk, init_state)
+
+
+def _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state):
+    """`ssd_chunked` on the card: kernel F's y and final state on the
+    inputs cast to float32 (the reference computes in float32 inside),
+    `D_res·x` added in float32, y cast back to x's dtype. F starts every
+    sequence from a zero state: an `init_state` raises `ValueError` (no
+    model passes one)."""
+    if init_state is not None:
+        raise ValueError("ssd_chunked: kernel F starts from a zero state; "
+                         "init_state is not supported on the card")
+    xf = x.float().contiguous()
+    y, state = _ssd.mamba2_ssd_with_state(
+        xf, dt.float().contiguous(), A.float().contiguous(),
+        B_in.float().contiguous(), C_in.float().contiguous(), chunk=chunk)
+    y = y + D_res.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B_in: torch.Tensor, C_in: torch.Tensor,
+                      D_res: torch.Tensor, chunk: int,
+                      init_state: Optional[torch.Tensor] = None):
+    """`ssd_chunked` as the reference computes it, on any device: the
+    plain version kernel F is held to (`kernels.ref.mamba2_ssd`)."""
     b, s, h, p = x.shape
     n = B_in.shape[-1]
     l = min(chunk, s)
@@ -344,3 +379,26 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = y_intra + y_inter + (D_res.float()[None, None, None, :, None]
                              * xc.float())
     return y.reshape(b, s, h, p).to(x.dtype), hstate
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B_in: torch.Tensor, C_in: torch.Tensor,
+                    D_res: torch.Tensor, state: torch.Tensor):
+    """One-token SSD recurrence. x:[B,H,P]; dt:[B,H]; B_in/C_in:[B,N];
+    state:[B,H,P,N] fp32. Returns (y [B,H,P], new_state)."""
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float()[None, :])                     # [B,H]
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dtf, B_in.float(), x.float())
+    new_state = state * dA[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", C_in.float(), new_state)
+    y = y + D_res.float()[None, :, None] * x.float()
+    return y.to(x.dtype), new_state
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float, n: Optional[int] = None) -> torch.Tensor:
+    """Mamba2 output norm: RMSNorm(y * silu(z))."""
+    yf = y.float() * F.silu(z.float())
+    denom = n if n is not None else yf.shape[-1]
+    var = torch.sum(yf * yf, dim=-1, keepdim=True) / denom
+    return (yf * torch.rsqrt(var + eps) * w.float()).to(y.dtype)

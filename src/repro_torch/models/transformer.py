@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.common.treeutil import tree_map
+from repro_torch.common.treeutil import tree_index
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
@@ -42,7 +42,7 @@ def _stack(trees: list):
 
 def layer_params(params, li: int) -> dict:
     """Layer `li`'s slice of the stacked ``params["layers"]``."""
-    return tree_map(lambda x: x[li], params["layers"])
+    return tree_index(params["layers"], li)
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):

@@ -5,8 +5,11 @@ pages and on pages with a NaN slice and an inf slice; each other float
 kernel (paged attention, flash attention, Mamba2 SSD) against its plain
 version at the reference's bars, with TF32 off; and the serving path's
 two kernel entries: `kvcache.quantize_page` (kernel D) on the engine's
-page and `models.layers.chunked_attention` (kernel E, with its padding
-and its refusals). They import nothing of JAX, so they run on a machine that has only the
+page and `models.layers.chunked_attention` (kernel E, with its padding,
+the models' ragged lengths and its refusal of a q_offset); the Mamba
+route `models.layers.ssd_chunked` (kernel F with its final state); and
+the three newer families' prefill on the card against the CPU. They
+import nothing of JAX, so they run on a machine that has only the
 port's dependencies:
 
     PYTHONPATH=src:tests python -m pytest -q -m gpu --noconftest \
@@ -173,7 +176,7 @@ def test_cuda_flash_attention_equals_plain_version(dtype, causal, case):
     g = _gpu_float_setup()
     q, k, v = (x.to(dtype) for x in cs.flash_inputs(torch, g, *case))
     before = fa.LAUNCHES
-    got = fa.flash_attention(q, k, v, causal=causal)
+    got = cs.flash_entry(fa, case[1], case[2])(q, k, v, causal=causal)
     assert fa.LAUNCHES == before + 1
     cs.close(torch, got, fa.flash_attention_torch(q, k, v, causal=causal),
              *cs.FLASH_TOL[cs.dtype_name(dtype)], "flash attention")
@@ -189,6 +192,23 @@ def test_cuda_mamba2_ssd_equals_plain_version(b, s, h, p, n, chunk):
     assert ssd.LAUNCHES == before + 1
     cs.close(torch, got, ssd.mamba2_ssd_torch(*args, chunk=chunk),
              *cs.SSD_TOL, "mamba2 ssd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk", cs.SSD_CASES)
+def test_cuda_mamba2_ssd_final_state_equals_plain_version(b, s, h, p, n,
+                                                          chunk):
+    """F's second output, the state after the last token that the models'
+    prefill hands to decode, written by each (batch, head)'s last chunk."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    args = cs.ssd_inputs(torch, _gpu_float_setup(), b, s, h, p, n)
+    before = ssd.LAUNCHES
+    y, state = ssd.mamba2_ssd_with_state(*args, chunk=chunk)
+    assert ssd.LAUNCHES == before + 1
+    y_want, state_want = ssd.mamba2_ssd_with_state_torch(*args, chunk=chunk)
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    cs.close(torch, y, y_want, *cs.SSD_TOL, "mamba2 ssd y")
+    cs.close(torch, state, state_want, *cs.SSD_TOL, "mamba2 ssd state")
 
 
 # ------------------------------------------------------------ serving path
@@ -250,12 +270,107 @@ def test_cuda_chunked_attention_equals_plain_loop(dtype, s, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal,q_offset,what", [
-    (False, 0, "non-causal"), (True, 8, "q_offset")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    (1, 300, 64, False), (300, 300, 64, False), (1000, 1000, 64, False),
+    (1, 1, 64, True), (512, 512, 112, True)])
+def test_cuda_chunked_attention_takes_the_models_lengths(dtype, sq, skv, d,
+                                                         causal):
+    """The encoder-decoder's and the hybrid's calls of
+    `layers.chunked_attention` on the card: kernel E at ragged lengths,
+    non-causal (cross-attention at its BOS prefill, the encoder over 300
+    frames, 1000 x 1000), causal 1 x 1 and head dim 112, held against the
+    plain loop on the CPU at `FLASH_TOL`."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    g = _gpu_float_setup()
+    q = torch.randn((2, sq, 4, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((2, skv, 4, d), generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    before = fa.LAUNCHES
+    got = L.chunked_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES == before + 1
+    want = L.chunked_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    cs.close(torch, got.cpu(), want, *cs.FLASH_TOL[cs.dtype_name(dtype)],
+             "chunked attention")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,init", [(256, False), (200, True)])
+def test_cuda_ssd_chunked_route(s, init):
+    """`layers.ssd_chunked` on the card is kernel F with its final state,
+    `D_res x` added in float32, y in x's dtype: held against the plain
+    loop on the CPU at `SSD_TOL`; an `init_state` raises (F starts from
+    zero), as does a chunk that does not divide S (200 by 128)."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models import layers as L
+    g = _gpu_float_setup()
+    args = list(cs.ssd_inputs(torch, g, 2, s, 3, 64, 128))
+    args[0] = args[0].to(torch.bfloat16)
+    d_res = torch.rand((3,), generator=g, device="cuda")
+    if init:
+        with pytest.raises(ValueError, match="init_state"):
+            L.ssd_chunked(*args, d_res, 128,
+                          init_state=torch.zeros((2, 3, 64, 128),
+                                                 device="cuda"))
+        with pytest.raises(ValueError, match="does not divide"):
+            L.ssd_chunked(*args, d_res, 128)
+        return
+    before = ssd.LAUNCHES
+    y, state = L.ssd_chunked(*args, d_res, 128)
+    assert ssd.LAUNCHES == before + 1 and y.dtype == torch.bfloat16
+    y_want, st_want = L.ssd_chunked(*[a.cpu() for a in args], d_res.cpu(),
+                                    128)
+    cs.close(torch, y.float().cpu(), y_want.float(), 1e-3, 1e-2,
+             "ssd_chunked y (one bf16 rounding)")
+    cs.close(torch, state.cpu(), st_want, *cs.SSD_TOL,
+             "ssd_chunked final state")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_family_prefill_matches_cpu(arch):
+    """Each new family's reduced config: `prefill` on the card (F in
+    every Mamba layer, E in every attention) equals the same call on the
+    CPU within `chip_smoke.MODEL_REL`, logits and every state leaf."""
+    from repro_torch.common.config import get_arch
+    from repro_torch.common.treeutil import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models.api import get_model
+    from repro_torch.models.dims import make_dims
+    _gpu_float_setup()
+    cfg = get_arch(arch).reduced()
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    M = get_model(cfg)
+    params = M.init(torch.Generator().manual_seed(0), cfg, dims, "cpu")
+    rs = np.random.RandomState(0)
+    if cfg.family == "encdec":
+        batch = {"enc_embeds": torch.from_numpy(
+            rs.randn(2, 37, cfg.d_model).astype(np.float32))}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rs.randint(0, cfg.vocab_size, (2, 64)))}
+    want = M.prefill(params, batch, cfg, dims)
+    before = (ssd.LAUNCHES, fa.LAUNCHES)
+    got = M.prefill(tree_map(lambda x: x.cuda(), params),
+                    {k: x.cuda() for k, x in batch.items()}, cfg, dims)
+    assert ssd.LAUNCHES > before[0] or cfg.family == "encdec"
+    assert fa.LAUNCHES > before[1] or cfg.family == "ssm"
+    v = cfg.vocab_size
+    cs.held(torch, got[0][:, :v], want[0][:, :v], f"{arch} logits")
+    cs.hold_trees(torch, got[1], want[1], f"{arch} state")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,q_offset,what", [(True, 8, "q_offset")])
 def test_cuda_chunked_attention_raises_where_kernel_e_cannot(causal,
                                                              q_offset, what):
-    """A non-causal call of a length E's blocks do not divide, or a
-    q_offset, raises on the card: nothing falls back to the plain loop."""
+    """A q_offset raises on the card (E counts query positions from 0):
+    nothing falls back to the plain loop. Every length is taken
+    (`test_cuda_chunked_attention_takes_the_models_lengths`)."""
     from repro_torch.models import layers as L
     _gpu_float_setup()
     q = torch.zeros((1, 300, 2, 16), device="cuda")
@@ -267,7 +382,8 @@ def test_cuda_chunked_attention_raises_where_kernel_e_cannot(causal,
 def test_cuda_bench_run_fast_reproduces_the_reference_artifacts(tmp_path):
     """`benchmarks_torch/run.py --fast` on the card, written to a scratch
     directory: every deterministic field equals the reference's committed
-    `results/bench/*.json` (`chip_smoke.check_artifacts`), the figure
+    `results/bench/*.json` (`chip_smoke.check_artifacts`, and the serving
+    entries' scheduling `chip_smoke.check_serving_artifacts`), the figure
     grids and the ladder ran on A1 and the regression guard on A2, and
     `kernel_micro` has the reference's keys beside the kernels'."""
     import importlib.util
@@ -282,6 +398,7 @@ def test_cuda_bench_run_fast_reproduces_the_reference_artifacts(tmp_path):
     assert mega.LAUNCHES > closed and mega.OPEN_LAUNCHES > open_
     got = {p.stem: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
     cs.check_artifacts(got)
+    cs.check_serving_artifacts(got)
     assert got["sweep_mega"]["ref_grid_8x8x3"]["fused_beats_batched"]
     assert {"flash_ref_us", "kv_quant_us", "ssd_ref_us", "flash_kernel_us",
             "kv_quant_kernel_us", "ssd_kernel_us"} <= set(got["kernel_micro"])

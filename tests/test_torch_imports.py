@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
 scripts (`benchmarks_torch/*.py`, `examples/dram_sweep_torch.py`,
-`tools/check_commands_torch.py`) import neither `jax` nor anything of
+`examples/serve_refresh_torch.py`, `tools/check_commands_torch.py`)
+import neither `jax` nor anything of
 the JAX package `repro`."""
 import pathlib
 import pkgutil
@@ -15,6 +16,7 @@ SRC = ROOT / "src"
 PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "benchmarks_torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "dram_sweep_torch.py",
+    ROOT / "examples" / "serve_refresh_torch.py",
     ROOT / "tools" / "check_commands_torch.py"]
 
 #: an import statement that names jax or the JAX package (not
@@ -57,7 +59,9 @@ def test_port_has_the_expected_modules():
               "repro_torch.serving.paged_decode", "repro_torch.launch.serve",
               "repro_torch.models.dims", "repro_torch.models.blocks",
               "repro_torch.models.loss", "repro_torch.models.transformer",
-              "repro_torch.models.api", "repro_torch.models.convert"):
+              "repro_torch.models.api", "repro_torch.models.convert",
+              "repro_torch.models.mamba", "repro_torch.models.hybrid",
+              "repro_torch.models.encdec"):
         assert m in mods, m
 
 
@@ -82,7 +86,8 @@ def test_importing_every_port_module_pulls_in_neither_jax_nor_repro():
 #: the port's figure, bench, example and tool scripts
 SCRIPTS = ("benchmarks_torch/fig_refresh.py",
            "benchmarks_torch/bench_framework.py", "benchmarks_torch/run.py",
-           "examples/dram_sweep_torch.py", "tools/check_commands_torch.py")
+           "examples/dram_sweep_torch.py", "examples/serve_refresh_torch.py",
+           "tools/check_commands_torch.py")
 
 
 def test_importing_the_port_scripts_pulls_in_neither_jax_nor_repro():

@@ -31,7 +31,6 @@ from repro.models.dims import make_dims as jmake_dims
 from repro.models.loss import lm_loss as jlm_loss
 from repro_torch.common import treeutil as ttree
 from repro_torch.common.config import get_arch as tget_arch
-from repro_torch.models import api as tapi
 from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -258,10 +257,9 @@ def test_chunked_attention_matches_reference(sq, skv, hq, hkv, causal, q_off,
                                       (128, True)])
 def test_card_attention_layout_and_padding(s, causal):
     """What `chunked_attention` does on the card around kernel E — the
-    [B·Hq, S, D] layout, GQA expansion, and the end padding of a causal
-    self-attention to a multiple of 128 rows — run here with E's plain
-    version (the wrapper's path for CPU tensors): it equals the plain
-    loop."""
+    [B·Hq, S, D] layout, GQA expansion, and the end padding of the
+    queries to a multiple of 128 rows — run here with E's plain version
+    (the wrapper's path for CPU tensors): it equals the plain loop."""
     rs = np.random.RandomState(s)
     q = _t(rs.randn(2, s, 4, 16).astype(np.float32))
     k, v = (_t(rs.randn(2, s, 2, 16).astype(np.float32)) for _ in range(2))
@@ -272,11 +270,14 @@ def test_card_attention_layout_and_padding(s, causal):
 
 
 @pytest.mark.parametrize("sq,skv,causal,q_off,what", [
-    (300, 300, False, 0, "non-causal"),
-    (300, 200, True, 0, "Sq != Skv"),
+    (300, 300, False, 4, "q_offset"),
+    (300, 200, True, 8, "q_offset"),
     (128, 128, True, 4, "q_offset")])
 def test_card_attention_raises_where_kernel_e_cannot_compute(sq, skv, causal,
                                                              q_off, what):
+    """E counts query positions from 0: the card route refuses a
+    q_offset, whatever the lengths (it takes every length, causal or
+    not: `tests/test_torch_families.py`)."""
     q = torch.zeros((1, sq, 2, 16))
     k = torch.zeros((1, skv, 2, 16))
     with pytest.raises(ValueError, match=what):
@@ -454,13 +455,6 @@ def test_config_copy_equals_reference(arch):
     assert repr(t.reduced()) == repr(j.reduced())
     assert t.param_count() == j.param_count()
     assert t.active_param_count() == j.active_param_count()
-
-
-@pytest.mark.parametrize("family_arch", ["mamba2-130m", "zamba2-7b",
-                                         "seamless-m4t-large-v2"])
-def test_families_still_to_port_raise(family_arch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tapi.get_model(tget_arch(family_arch))
 
 
 def test_init_shapes_and_masks():

@@ -15,6 +15,8 @@ The kernel cannot run here; these tests pin its decomposition:
 * the carried state h_c = h_{c-1} exp(total) + S_c, h_{-1} = 0;
 * the carried term taken transposed, (h_{c-1}.C^T)^T, times exp(cum_i),
   added to y;
+* the last chunk's h_c, the final state, written out for the models'
+  decode;
 
 with every product 3xTF32: both operands split into hi + lo parts, each
 rounded to the nearest TF32 value (10 mantissa bits, ties away from
@@ -31,6 +33,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models import layers as JL
 from repro_torch.kernels import ref as tref
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -62,10 +65,12 @@ def mm_3xtf32(a, b):
     return (al @ bh + ah @ bl) + ah @ bh
 
 
-def emulate_ssd(x, dt, A, B, C, chunk, mm=mm_3xtf32):
+def emulate_ssd(x, dt, A, B, C, chunk, mm=mm_3xtf32, with_state=False):
     """Kernel F's arithmetic on float32 CPU tensors: x [b, s, h, p], dt
     [b, s, h], A [h], B/C [b, s, n] -> y [b, s, h, p]; `mm` is every
-    product."""
+    product. `with_state` also returns the last chunk's carried state
+    h_{nc-1} = h_{nc-2} exp(total) + S_{nc-1} [b, h, p, n], which the
+    kernel's last chunk writes as its final-state output."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     l = min(chunk, s)
@@ -93,7 +98,8 @@ def emulate_ssd(x, dt, A, B, C, chunk, mm=mm_3xtf32):
             y[:, c] = torch.addcmul(y[:, c], ecum[:, c, ..., None],
                                     yo.transpose(-1, -2))
         hstate = hstate * etot[:, c] + states[:, c]
-    return y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
+    return (y, hstate) if with_state else y
 
 
 def _inputs(b, s, h, p, n, seed, strong=False):
@@ -126,6 +132,24 @@ def test_emulated_kernel_holds_the_bar_at_the_edge_shapes(case):
           f"against repro.kernels.ref at {case}")
     _held(got, tref.mamba2_ssd(*ts, chunk=chunk),
           f"against the port's plain version at {case}")
+
+
+@pytest.mark.parametrize("case", cs.SSD_CASES)
+def test_emulated_final_state_holds_the_bar_at_the_edge_shapes(case):
+    """F's final state, the carried state after the last chunk (the
+    update h exp(total) + S_c that the other chunks publish to the
+    look-back ring), against the reference's `ssd_chunked` second output
+    and the port's plain version (`mamba2_ssd_with_state`)."""
+    b, s, h, p, n, chunk = case
+    arrs, ts = _inputs(b, s, h, p, n, seed=s + p + n)
+    y, state = emulate_ssd(*ts, chunk, with_state=True)
+    assert state.shape == (b, h, p, n)
+    _, jstate = JL.ssd_chunked(*map(jnp.asarray, arrs),
+                               jnp.zeros((h,), jnp.float32), chunk)
+    _held(state, jstate, f"final state against the reference at {case}")
+    ty, tstate = tref.mamba2_ssd_with_state(*ts, chunk=chunk)
+    _held(state, tstate, f"final state against the port's at {case}")
+    _held(y, ty, f"y beside the state at {case}")
 
 
 def test_emulated_kernel_carries_the_state_over_64_chunks():
