@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Benchmark harness of the PyTorch/CUDA port: the DRAM half of
 `benchmarks/run.py`, one entry per paper figure and sweep bench, then the
-two framework benches that need only the kernels.
+framework benches.
 
     python3 benchmarks_torch/run.py [--fast] [--device cuda|cpu] [--out DIR]
 
@@ -23,6 +23,8 @@ torch and CUDA versions, the flags).
                       tick body on the card, sharding probe, regression
                       guard vs batched on the 8x8x3 grid
   command_trace       command emission overhead, violations, round trip
+  darp_ckpt           framework DARP: checkpoint flush scheduling overhead
+                      of the trainer (reduced qwen2.5-3b)
   serving_policies    serving maintenance policies through the legacy
                       `ServingEngine` shim: tokens, stalls, compressions
   serving_lifecycle   `EngineCore` request lifecycle: TTFT/TPOT
@@ -37,9 +39,8 @@ The figures sweep on `backend="mega"` on the card. With `--device cpu`
 they sweep on the numpy `batched` engine (the megakernel's plain version
 gives the same cells but is only a correctness oracle), the serving
 entries run their engines on the CPU, and the two entries that time the
-card, `sweep_mega` and `kernel_micro`, are left out. The reference's
-`darp_ckpt` entry needs the training stack, which the port does not
-have yet.
+card, `sweep_mega` and `kernel_micro`, are left out (`darp_ckpt` trains
+on the CPU there).
 """
 from __future__ import annotations
 
@@ -173,6 +174,11 @@ def main(argv=None) -> int:
          f"overhead_pct={ct['overhead_pct']};"
          f"violations={ct['violations']};"
          f"bit_identical={ct['bit_identical']}", ct)
+
+    ck = BF.bench_darp_ckpt(steps=20 if fast else 40, device=device)
+    emit("darp_ckpt", ck["darp"]["mean_step_ms"] * 1e3,
+         f"darp_overhead={ck['darp']['overhead_pct']}%;"
+         f"sync_overhead={ck['all_bank']['overhead_pct']}%", ck)
 
     t0 = time.perf_counter()
     sv = BF.bench_serving(n_requests=4 if fast else 6,

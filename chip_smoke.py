@@ -138,11 +138,30 @@ and prints one JSON object a line:
               attentions, the encoder's 300 x 300 and the cross 1 x 300
               non-causal with ragged keys), held against the plain
               attention (path `model_encdec_flash`); all at `MODEL_REL`.
+ 11. training the port's train step on the card at full width, f32 (path
+              `model_train_step`): one `make_train_step` step of
+              qwen2-0.5b at batch 2 x 512 with `accum` 1 and 2, and of
+              mamba2-130m at 2 x 512, from `SyntheticLMData(seed=0)`;
+              kernel E is the forward of every attention and F of every
+              Mamba layer's SSD, each launched again in the layer's
+              rematerialized forward (E 48 / 96, F 48 launches a step),
+              both inside `torch.autograd.Function`s whose backward is
+              autograd of the plain version. The loss and every gradient
+              leaf are held against the same call with no kernel
+              (`plain_train`) at `MODEL_REL`, the q/k/v and Mamba input
+              projections' gradients non-zero; ms a step, tokens/s and
+              the device's busy share. Then the trainer (path
+              `trainer_ckpt`): `bench_darp_ckpt` at `run.py --fast`'s 20
+              steps on the reduced qwen2.5-3b, its `flushes` equal to the
+              reference's `results/bench/darp_ckpt.json`; a bit-exact
+              checkpoint round trip of a CUDA train state with bf16
+              moments; `python -m repro_torch.launch.train --reduced
+              --steps 12 --device cuda --ckpt-dir ...` exiting 0.
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-seventeen paths and read just after it, and reported per path; a path that
+nineteen paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -2161,6 +2180,259 @@ def check_model_encdec(torch, run):
     return errs
 
 
+# ------------------------------------------------------------ phase 11
+# training on the card: one `make_train_step` step at full width, f32,
+# qwen2-0.5b (phase 9's model; batch 2 x 512, `accum` 1 and 2) and
+# mamba2-130m (phase 10's; 2 x 512), from `SyntheticLMData(seed=0)`; then
+# the trainer's checkpoint engine at the reference's bench shape.
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_CASES = ((MODEL_ARCH, 1), (MODEL_ARCH, 2), (SSM_ARCH, 1))
+#: the leaves whose gradient passes through kernel E (attention q/k/v) or
+#: kernel F (the Mamba x projection, whose gradient stays finite at full
+#: width; `check_model_train`): non-zero, and held
+THROUGH_KERNELS = {"dense": ("layers/attn/wq", "layers/attn/wk",
+                             "layers/attn/wv"),
+                   "ssm": ("layers/wx",)}
+
+
+def plain_train(fa, ssd, ops):
+    """A context in which the models' differentiable card routes
+    (`ops.flash_attention_ragged_trainable`,
+    `ops.mamba2_ssd_with_state_trainable`) are their plain versions
+    differentiated by autograd, with `plain_attention` and `plain_ssd`
+    besides: the step then runs its same code with no kernel, forward or
+    backward, which holds E's and F's forward and the Functions' shared
+    backward at once."""
+    import contextlib
+    from unittest import mock
+
+    def attention(q, k, v, causal=True):
+        return ops.R.flash_attention(q, k, v, causal=causal)
+
+    def ssd_route(x, dt, A, B_in, C_in, *, chunk=128):
+        return ops.R.mamba2_ssd_with_state(x, dt, A, B_in, C_in,
+                                           chunk=chunk)
+    stack = contextlib.ExitStack()
+    stack.enter_context(plain_attention(fa))
+    stack.enter_context(plain_ssd(ssd))
+    stack.enter_context(mock.patch.object(
+        ops, "flash_attention_ragged_trainable", attention))
+    stack.enter_context(mock.patch.object(
+        ops, "mamba2_ssd_with_state_trainable", ssd_route))
+    return stack
+
+
+def train_case(torch, name, accum):
+    """(cfg, dims, state, batch) of one full-width training case on the
+    card: params from a generator seeded 0, AdamW state, batch 0 of
+    `SyntheticLMData(seed=0)`."""
+    from repro_torch.common.config import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.dims import make_dims
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_state
+    cfg = get_arch(name)
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = make_state(gen, cfg, dims, ocfg, device="cuda")
+    batch = SyntheticLMData(cfg.vocab_size, batch=TRAIN_B, seq=TRAIN_S,
+                            seed=0).batch_at(0)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    return cfg, dims, ocfg, state, batch
+
+
+def model_train_path(torch, np):
+    """One `make_train_step` step of each `TRAIN_CASES` entry, and the
+    same step's gradients (`make_grad_fn`), with the E and F launches of
+    each; ms a step, tokens/s and the device's busy share."""
+    from repro_torch.common.treeutil import flat_paths, tree_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import make_grad_fn
+    runs, report = {}, {}
+    for name, accum in TRAIN_CASES:
+        label = f"{name}_accum{accum}"
+        cfg, dims, ocfg, state, batch = train_case(torch, name, accum)
+        grads_of = make_grad_fn(cfg, dims, accum=accum)
+        (loss, _, grads), n_grad = kernel_launches(
+            lambda: grads_of(state["params"], batch))
+        step = make_train_step(cfg, dims, ocfg, accum=accum, device="cuda")
+        (new_state, metrics), n_step = kernel_launches(
+            lambda: step(state, batch))
+        nonfinite = [path for path, x in zip(flat_paths(new_state),
+                                             tree_leaves(new_state))
+                     if not bool(torch.isfinite(x).all())]
+        if nonfinite and cfg.family != "ssm":
+            raise AssertionError(f"train step {label}: non-finite leaves "
+                                 f"{nonfinite}")
+        ms = time_cuda(torch, lambda i: step(state, batch), 3)
+        runs[label] = dict(cfg=cfg, dims=dims, accum=accum, state=state,
+                           batch=batch, loss=loss, grads=grads,
+                           step_loss=metrics["loss"], n_grad=n_grad,
+                           n_step=n_step)
+        report[label] = dict(
+            model=name, accum=accum, batch=[TRAIN_B, TRAIN_S],
+            layers=cfg.n_layers, d_model=cfg.d_model,
+            loss=float(metrics["loss"]),
+            gnorm=(float(metrics["gnorm"]) if bool(torch.isfinite(
+                metrics["gnorm"])) else str(float(metrics["gnorm"]))),
+            step_ms=ms, tokens_per_s=TRAIN_B * TRAIN_S / (ms / 1e3),
+            launches_a_step=n_step, launches_in_grads=n_grad,
+            nonfinite_state_leaves=len(nonfinite),
+            profile=device_share(torch, lambda: step(state, batch)))
+        del new_state, metrics
+        torch.cuda.empty_cache()
+    return runs, dict(phase="model_train_step", dtype="float32",
+                      cases=report)
+
+
+def held_nonfinite(torch, got, want, what, rel=MODEL_REL):
+    """`held` on the elements where `want` is finite; where it is not,
+    `got` must hold the same value (NaN where NaN, the same infinity).
+    Returns (max abs difference, count of non-finite elements)."""
+    g, w = got.float(), want.float().to(got.device)
+    bad = ~torch.isfinite(w)
+    same = torch.equal(bad, ~torch.isfinite(g)) and torch.equal(
+        torch.isnan(w), torch.isnan(g)) and torch.equal(
+        g[bad & ~torch.isnan(w)], w[bad & ~torch.isnan(w)])
+    if not same:
+        raise AssertionError(f"{what}: the non-finite elements differ")
+    if bool(bad.all()):
+        return 0.0, int(bad.sum())
+    return held(torch, g[~bad], w[~bad], what, rel), int(bad.sum())
+
+
+def check_model_train(torch, run):
+    """Each case's loss and every gradient leaf against the same call
+    with no kernel (`plain_train`), at `MODEL_REL` of the plain leaf's
+    largest magnitude; the leaves through E or F (`THROUGH_KERNELS`)
+    non-zero; E launched twice a layer and microbatch (forward and the
+    rematerialized forward), F twice a Mamba layer.
+
+    mamba2-130m's gradients hold NaN at full width, in the reference as
+    here: the chunked SSD's within-chunk decay exp(cum_i - cum_j)
+    overflows above the diagonal (|dt·A| summed over 128 tokens passes
+    88), and the masked product's gradient is 0·inf (`ROADMAP.md` queue
+    3). Its leaves are held where finite, with NaN at the same elements
+    in both calls, and F's input x (whose gradient stays finite) must
+    carry a finite non-zero gradient to `layers/wx`."""
+    from repro_torch.common.treeutil import flat_paths, tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import make_grad_fn
+    errs = {}
+    for label, r in run.items():
+        cfg = r["cfg"]
+        kernel = ("mamba2_ssd" if cfg.family == "ssm" else
+                  "flash_attention")
+        want = 2 * cfg.n_layers * r["accum"]
+        for what in ("n_grad", "n_step"):
+            if r[what][kernel] != want:
+                raise AssertionError(f"{label}: {r[what][kernel]} {kernel} "
+                                     f"launches in {what}, not {want}")
+        grads_of = make_grad_fn(cfg, r["dims"], accum=r["accum"])
+        with plain_train(fa, ssd, ops):
+            (loss, _, grads), n = kernel_launches(
+                lambda: grads_of(r["state"]["params"], r["batch"]))
+        if any(n.values()):
+            raise AssertionError(f"{label}: the plain step launched {n}")
+        errs[f"{label}/loss"] = held(torch, r["loss"], loss, f"{label} loss")
+        errs[f"{label}/step_loss"] = held(torch, r["step_loss"], loss,
+                                          f"{label} step loss")
+        paths = flat_paths(grads)
+        got = dict(zip(flat_paths(r["grads"]), tree_leaves(r["grads"])))
+        ssm = cfg.family == "ssm"
+        for path, w in zip(paths, tree_leaves(grads)):
+            what = f"{label} gradient {path}"
+            if ssm:
+                err, n_bad = held_nonfinite(torch, got[path], w, what)
+                errs[f"{label}/grad/{path}"] = err
+                if n_bad:
+                    errs[f"{label}/nan_elements/{path}"] = n_bad
+            else:
+                errs[f"{label}/grad/{path}"] = held(torch, got[path], w,
+                                                    what)
+        for path in THROUGH_KERNELS["ssm" if ssm else "dense"]:
+            g = got[path][torch.isfinite(got[path])]
+            if g.numel() == 0 or float(g.abs().max()) == 0.0:
+                raise AssertionError(f"{label}: no finite gradient reaches "
+                                     f"{path} through the kernel")
+    return errs
+
+
+def trainer_ckpt_path(torch, np):
+    """The trainer and its checkpoint engine on the card:
+    `bench_darp_ckpt` at `run.py --fast`'s 20 steps (reduced qwen2.5-3b,
+    8 x 64 tokens; E in every step), a bit-exact round trip of a CUDA
+    train state with bf16 moments and a factored second moment, and
+    `python -m repro_torch.launch.train --reduced --steps 12` in a process
+    of its own."""
+    import tempfile
+    sys.path.insert(0, HERE)
+    from benchmarks_torch import bench_framework as BF
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointEngine
+    from repro_torch.common.config import get_arch
+    from repro_torch.common.treeutil import tree_leaves
+    from repro_torch.models.dims import make_dims
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_state, make_train_step
+    t0 = time.perf_counter()
+    bench = BF.bench_darp_ckpt(steps=20, device="cuda")
+    bench_s = time.perf_counter() - t0
+    want = load_artifact("darp_ckpt")
+    for k in want:
+        require_same(bench[k]["flushes"], want[k]["flushes"],
+                     f"darp_ckpt {k} flushes")
+    cfg = get_arch("qwen2.5-3b").reduced()
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    ocfg = OptConfig(moment_dtype="bfloat16", factored_v=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = make_state(gen, cfg, dims, ocfg, device="cuda")
+    rs = np.random.RandomState(3)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (4, 32)),
+             "labels": rs.randint(0, cfg.vocab_size, (4, 32))}
+    state, _ = make_train_step(cfg, dims, ocfg, device="cuda")(state, batch)
+    with tempfile.TemporaryDirectory() as d:
+        eng = CheckpointEngine(CheckpointConfig(directory=d, interval=1,
+                                                n_banks=3))
+        eng.force_snapshot(1, state)
+        eng.flush_all_now()
+        eng.wait()
+        restored, step = eng.restore(state)
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--steps", "12", "--device", "cuda", "--ckpt-dir",
+             os.path.join(d, "cli"), "--ckpt-interval", "4"],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    if cli.returncode != 0:
+        raise AssertionError(f"launch.train exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    if step != 1:
+        raise AssertionError(f"restored step {step}, not 1")
+    n_bf16 = 0
+    for a, b in zip(tree_leaves(state), tree_leaves(restored)):
+        if a.dtype != b.dtype or a.device != b.device:
+            raise AssertionError("restored leaf of another dtype or device")
+        if a.dtype == torch.bfloat16:
+            n_bf16 += 1
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        if not torch.equal(a, b):
+            raise AssertionError("checkpoint round trip not bit-exact")
+    if n_bf16 == 0:
+        raise AssertionError("the round trip held no bf16 leaf")
+    return dict(phase="trainer_ckpt", darp_ckpt=bench,
+                darp_ckpt_seconds=bench_s,
+                flushes_equal_reference=True,
+                round_trip={"leaves": len(tree_leaves(state)),
+                            "bf16_leaves": n_bf16, "bit_exact": True},
+                launch_train_cli=cli.stdout.strip().splitlines()[:1]
+                + cli.stdout.strip().splitlines()[-1:])
+
+
 def time_family_kernels(torch):
     """F and E at the shapes the three family paths give them, beside
     their plain versions, bounds and, for E, SDPA (CUDA events; these
@@ -2414,6 +2686,19 @@ def main() -> int:
         emit(dict(rep, launches=paths[label]))
         del run
         torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train_run, trs = drive("model_train_step", "flash_attention+mamba2_ssd",
+                           model_train_path, torch, np)
+    trs["max_abs_err"] = check_model_train(torch, train_run)
+    trs["seconds"] = round(time.perf_counter() - t_train, 3)
+    emit(dict(trs, launches=paths["model_train_step"]))
+    del train_run
+    torch.cuda.empty_cache()
+    t_ckpt = time.perf_counter()
+    ckp = drive("trainer_ckpt", "flash_attention", trainer_ckpt_path, torch,
+                np)
+    ckp["seconds"] = round(time.perf_counter() - t_ckpt, 3)
+    emit(dict(ckp, launches=paths["trainer_ckpt"]))
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)

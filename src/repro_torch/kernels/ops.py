@@ -6,7 +6,10 @@ hand-written kernel of its module (`csrc/*.cu`) or raises; on CPU tensors
 it runs that module's plain PyTorch version. `flash_attention_trainable`
 launches the flash kernel forward; its backward recomputes through the
 oracle `ref.flash_attention` under autograd, as the reference's custom
-VJP does (the reference has no kernel backward). `paged_attention_serial`
+VJP does (the reference has no kernel backward). The models' card routes
+differentiate the same way: `flash_attention_ragged_trainable` (E at any
+lengths) and `mamba2_ssd_with_state_trainable` (F with its final state,
+backward through `ref.mamba2_ssd_with_state`). `paged_attention_serial`
 is the unfused baseline — dequantize the whole cache to bf16, then
 attend — plain PyTorch, as it is plain jnp in the reference.
 """
@@ -31,11 +34,18 @@ mamba2_ssd = _ssd.mamba2_ssd
 
 # ------------------------------------------------------------------- flash
 class _FlashTrainable(torch.autograd.Function):
+    """Kernel E forward, the oracle's gradient backward: the one backward
+    of E, shared by `flash_attention_trainable` (the TPU kernel's
+    contract, `_fa.flash_attention`) and the models' card route
+    (`models.layers.chunked_attention`, any lengths,
+    `_fa.flash_attention_ragged`)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, ragged):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        return _fa.flash_attention(q, k, v, causal=causal)
+        fwd = _fa.flash_attention_ragged if ragged else _fa.flash_attention
+        return fwd(q, k, v, causal=causal)
 
     @staticmethod
     def backward(ctx, g):
@@ -43,11 +53,53 @@ class _FlashTrainable(torch.autograd.Function):
         with torch.enable_grad():
             out = R.flash_attention(q, k, v, causal=ctx.causal)
             gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
-        return gq, gk, gv, None
+        return gq, gk, gv, None, None
 
 
 def flash_attention_trainable(q, k, v, causal=True):
-    return _FlashTrainable.apply(q, k, v, causal)
+    return _FlashTrainable.apply(q, k, v, causal, False)
+
+
+def flash_attention_ragged_trainable(q, k, v, causal=True):
+    """`flash_attention_trainable` at any lengths (`flash_attention_ragged`
+    forward): the models' attention on the card."""
+    return _FlashTrainable.apply(q, k, v, causal, True)
+
+
+# --------------------------------------------------------------------- ssd
+class _SsdTrainable(torch.autograd.Function):
+    """Kernel F forward with its final state (`mamba2_ssd_with_state`),
+    the plain version's gradient backward: autograd of
+    `ref.mamba2_ssd_with_state` (the chunked SSD with a zero residual)
+    recomputed from the saved inputs. A final state that nothing reads
+    comes back with no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_in, C_in, chunk):
+        ctx.save_for_backward(x, dt, A, B_in, C_in)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssd.mamba2_ssd_with_state(x, dt, A, B_in, C_in, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = R.mamba2_ssd_with_state(*ins, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gstate))
+                     if g is not None]
+            if not pairs:
+                return (None,) * 6
+            grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        return (*grads, None)
+
+
+def mamba2_ssd_with_state_trainable(x, dt, A, B_in, C_in, *, chunk=128):
+    """`mamba2_ssd_with_state` with a gradient: kernel F forward, the
+    plain version's gradient backward (the models' SSD on the card)."""
+    return _SsdTrainable.apply(x, dt, A, B_in, C_in, chunk)
 
 
 # ------------------------------------------------------- paged attn (SARP)

@@ -3,10 +3,11 @@
 embeddings and a causal decoder with cross-attention.
 
 The reference's scans over the stacked layers are Python loops here, its
-`jax.checkpoint` has no counterpart in this forward-only port. On CUDA
+per-layer `jax.checkpoint` in train mode `transformer.remat`. On CUDA
 tensors every attention of `encode`, `train_loss` and `prefill` is kernel
-E through `layers.chunked_attention`: the encoder's self-attention and
-the cross-attention non-causal at any frame count, the decoder's
+E through `layers.chunked_attention` (differentiable; in train mode it
+runs again in the backward's recompute): the encoder's self-attention
+and the cross-attention non-causal at any frame count, the decoder's
 self-attention causal. Decode is plain torch.
 """
 from __future__ import annotations
@@ -15,12 +16,12 @@ import math
 
 import torch
 
-from repro_torch.common.treeutil import tree_index
+from repro_torch.common.treeutil import tree_index, tree_unbind
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
-from repro_torch.models.transformer import _stack
+from repro_torch.models.transformer import _stack, remat
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
@@ -63,11 +64,14 @@ def encode(params, cfg, dims: Dims, enc_embeds, mode="train"):
     """Frame embeddings [B,T,D] -> encoder memory [B,T,D]."""
     h = enc_embeds.to(dims.compute_dtype)
     sin, cos = _rope(cfg, h.shape[0], h.shape[1], h.device)
-    for li in range(cfg.n_encoder_layers):
-        lp = tree_index(params["enc_layers"], li)
+
+    def body(h, lp):
         h, _ = B.apply_attn(lp["attn"], h, dims, sin=sin, cos=cos,
                             causal=False, mode="forward")
-        h = B.apply_mlp(lp["mlp"], h, dims)
+        return B.apply_mlp(lp["mlp"], h, dims)
+
+    for lp in tree_unbind(params["enc_layers"], cfg.n_encoder_layers):
+        h = remat(body, mode, h, lp)
     return L.rmsnorm(h, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -76,13 +80,16 @@ def _decode_stack(params, cfg, dims: Dims, tokens, enc_h, mode):
     sin, cos = _rope(cfg, h.shape[0], h.shape[1], h.device)
     collect = mode == "prefill"
     ys = {"k": [], "v": [], "ck": [], "cv": []}
-    for li in range(cfg.n_layers):
-        lp = tree_index(params["dec_layers"], li)
+
+    def body(h, lp, enc_h):
         h, kv = B.apply_attn(lp["self"], h, dims, sin=sin, cos=cos,
                              causal=True, mode=mode)
         ckv = B.cross_kv(lp["cross"], enc_h, dims)
         h = B.apply_cross_attn(lp["cross"], h, dims, kv=ckv)
-        h = B.apply_mlp(lp["mlp"], h, dims)
+        return B.apply_mlp(lp["mlp"], h, dims), kv, ckv
+
+    for lp in tree_unbind(params["dec_layers"], cfg.n_layers):
+        h, kv, ckv = remat(body, mode, h, lp, enc_h)
         if collect:
             for key, x in zip(("k", "v", "ck", "cv"), kv + ckv):
                 ys[key].append(x.to(dims.compute_dtype))
@@ -92,7 +99,7 @@ def _decode_stack(params, cfg, dims: Dims, tokens, enc_h, mode):
 
 
 def train_loss(params, batch, cfg, dims: Dims):
-    """The loss value and its metrics (no backward in this port yet)."""
+    """(loss, metrics): differentiable in the params."""
     enc_h = encode(params, cfg, dims, batch["enc_embeds"], mode="train")
     h, _ = _decode_stack(params, cfg, dims, batch["tokens"], enc_h, "train")
     return LS.lm_loss(h, params["lm_head"], batch["labels"],

@@ -4,11 +4,12 @@ backbone plus ONE shared-weight attention(+MLP) block applied every
 
 81 blocks = 13 groups of [5 mamba + shared attn] + 3 trailing mamba. The
 group params are stacked [G, per, ...], the tail's [tail, ...]; the
-reference's scans over them are Python loops here, its `jax.checkpoint`
-has no counterpart in this forward-only port. On CUDA tensors each Mamba
-layer's chunked SSD is kernel F and each application of the shared
-attention kernel E (causal, head dim 112 at full width); decode is plain
-torch.
+reference's scans over them are Python loops here, and its
+`jax.checkpoint`s in train mode are `transformer.remat` at the same
+places: a group, each Mamba layer inside it, each tail layer. On CUDA
+tensors each Mamba layer's chunked SSD is kernel F and each application
+of the shared attention kernel E (causal, head dim 112 at full width),
+both differentiable; decode is plain torch.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ import math
 
 import torch
 
-from repro_torch.common.treeutil import tree_index
+from repro_torch.common.treeutil import tree_index, tree_unbind
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
-from repro_torch.models.transformer import _embed_in, _stack
+from repro_torch.models.transformer import _embed_in, _stack, remat
 
 
 def _split(cfg):
@@ -77,22 +78,29 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     sin, cos = _rope(cfg, bsz, seq, h.device)
     collect = mode == "prefill"
     gm, ks, vs, tm = [], [], [], []
-    for g in range(groups):
+
+    def mamba_body(h, lp):
+        return B.apply_mamba(lp, h, dims, return_state=collect)
+
+    def group_body(h, layers, shared):
         sts = []
-        for i in range(per):
-            h, st = B.apply_mamba(tree_index(params["groups"], (g, i)), h,
-                                  dims, return_state=collect)
+        for lp in layers:
+            # per-layer remat inside the group, as the reference's
+            h, st = remat(mamba_body, mode, h, lp)
             sts.append(st)
-        h, kv = B.apply_attn(params["shared"]["attn"], h, dims, sin=sin,
-                             cos=cos, causal=True, mode=mode)
-        h = B.apply_mlp(params["shared"]["mlp"], h, dims)
+        h, kv = B.apply_attn(shared["attn"], h, dims, sin=sin, cos=cos,
+                             causal=True, mode=mode)
+        return B.apply_mlp(shared["mlp"], h, dims), sts, kv
+
+    for gp in tree_unbind(params["groups"], groups):
+        h, sts, kv = remat(group_body, mode, h, tree_unbind(gp, per),
+                           params["shared"])
         if collect:
             gm.append(_stack(sts))
             ks.append(kv[0].to(dims.compute_dtype))
             vs.append(kv[1].to(dims.compute_dtype))
-    for i in range(tail):
-        h, st = B.apply_mamba(tree_index(params["tail"], i), h, dims,
-                              return_state=collect)
+    for lp in (tree_unbind(params["tail"], tail) if tail else ()):
+        h, st = remat(mamba_body, mode, h, lp)
         tm.append(st)
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)
     if not collect:
@@ -103,7 +111,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
 
 
 def train_loss(params, batch, cfg, dims: Dims):
-    """The loss value and its metrics (no backward in this port yet)."""
+    """(loss, metrics): differentiable in the params."""
     h, _ = forward(params, cfg, dims, tokens=batch.get("tokens"),
                    embeds=batch.get("embeds"), mode="train")
     return LS.lm_loss(h, params["lm_head"], batch["labels"],

@@ -11,9 +11,13 @@ card and are dropped.
 `ssd_chunked` where kernel F does: on CUDA tensors they launch
 `repro_torch.kernels.flash_attention` / `mamba2_ssd` (or raise), on CPU
 tensors they run the reference's loops (`ssd_chunked_plain`, the plain
-SSD, is also F's oracle). The other Mamba2 layers (depthwise conv, the
-one-token SSD step, the gated norm) are plain torch on every device, as
-they are plain jnp in the reference.
+SSD, is also F's oracle). On the card both launches sit inside
+`torch.autograd.Function`s (`kernels.ops`) whose backward is autograd of
+the plain version recomputed from the saved inputs, as the reference's
+`flash_attention_trainable` differentiates its kernel: the kernel runs
+every forward, a gradient passes through it. The other Mamba2 layers
+(depthwise conv, the one-token SSD step, the gated norm) are plain torch
+on every device, as they are plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -23,8 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import mamba2_ssd as _ssd
+from repro_torch.kernels import ops as _ops
 
 # --------------------------------------------------------------------- norms
 
@@ -153,7 +156,10 @@ def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
     128-row blocks and sliced back, keys at their own length), causal or
     not: the encoder's and cross-attention's non-causal calls and the
     decoders' causal ones. E counts query positions from 0: a `q_offset`
-    raises `ValueError`."""
+    raises `ValueError`. Differentiable:
+    `ops.flash_attention_ragged_trainable` (E forward, the oracle's
+    gradient backward); the GQA expansion and the permutes stay outside
+    it, under autograd, so the repeated kv heads' gradients are summed."""
     b, sq, hq, d = q.shape
     if q_offset:
         raise ValueError(f"chunked_attention: kernel E counts query "
@@ -166,8 +172,8 @@ def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
         return x.permute(0, 2, 1, 3).reshape(b * hq, x.shape[1],
                                              d).contiguous()
 
-    out = _fa.flash_attention_ragged(heads_first(q), heads_first(k),
-                                     heads_first(v), causal=causal)
+    out = _ops.flash_attention_ragged_trainable(
+        heads_first(q), heads_first(k), heads_first(v), causal=causal)
     return out.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
 
 
@@ -321,12 +327,14 @@ def _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state):
     inputs cast to float32 (the reference computes in float32 inside),
     `D_res·x` added in float32, y cast back to x's dtype. F starts every
     sequence from a zero state: an `init_state` raises `ValueError` (no
-    model passes one)."""
+    model passes one). Differentiable: `ops.mamba2_ssd_with_state_trainable`
+    (F forward, the plain SSD's gradient backward); `D_res·x` stays
+    outside it."""
     if init_state is not None:
         raise ValueError("ssd_chunked: kernel F starts from a zero state; "
                          "init_state is not supported on the card")
     xf = x.float().contiguous()
-    y, state = _ssd.mamba2_ssd_with_state(
+    y, state = _ops.mamba2_ssd_with_state_trainable(
         xf, dt.float().contiguous(), A.float().contiguous(),
         B_in.float().contiguous(), C_in.float().contiguous(), chunk=chunk)
     y = y + D_res.float()[None, None, :, None] * xf

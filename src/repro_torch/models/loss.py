@@ -1,5 +1,5 @@
-"""Chunked LM cross-entropy (the value; no backward yet), mirroring
-`repro/models/loss.py`: never materializes [B, S, V] logits.
+"""Chunked LM cross-entropy, mirroring `repro/models/loss.py`: never
+materializes [B, S, V] logits.
 
 Loops over sequence blocks; per block computes fp32 logits against the
 head, a numerically-stable logsumexp, the label logit, and a z-loss.
@@ -25,7 +25,7 @@ def lm_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, *,
         hb, lb = h[:, i:i + block], labels[:, i:i + block]
         logits = torch.einsum("bsd,dv->bsv", hb, head.to(hb.dtype)).float()
         logits = torch.where(vmask[None, None, :], logits, -torch.inf)
-        m = logits.amax(-1)
+        m = logits.amax(-1).detach()        # the reference's stop_gradient
         lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), -1))
         ll = torch.gather(logits, -1,
                           torch.clamp_min(lb, 0).long()[..., None])[..., 0]

@@ -3,9 +3,11 @@
 
 No KV cache: the decode state is each layer's (ssd state, conv tails).
 The reference's `lax.scan` over the stacked layers is a Python loop over
-the layer axis here, and its `jax.checkpoint` has no counterpart in this
-forward-only port. On CUDA tensors every layer's chunked SSD in `forward`
-and `prefill` is kernel F (`layers.ssd_chunked`); decode is plain torch.
+the layer axis here, and its per-layer `jax.checkpoint` in train mode is
+`transformer.remat`. On CUDA tensors every layer's chunked SSD in
+`forward` and `prefill` is kernel F (`layers.ssd_chunked`),
+differentiable: in train mode F runs twice a layer and step, the forward
+and the backward's recompute. Decode is plain torch.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
-from repro_torch.models.transformer import _embed_in, _stack, layer_params
+from repro_torch.common.treeutil import tree_unbind
+from repro_torch.models.transformer import (_embed_in, _stack, layer_params,
+                                            remat)
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
@@ -41,9 +45,12 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     h = _embed_in(params, dims, tokens, embeds)
     collect = mode == "prefill"
     states = []
-    for li in range(cfg.n_layers):
-        h, st = B.apply_mamba(layer_params(params, li), h, dims,
-                              return_state=collect)
+
+    def body(h, lp):
+        return B.apply_mamba(lp, h, dims, return_state=collect)
+
+    for lp in tree_unbind(params["layers"], cfg.n_layers):
+        h, st = remat(body, mode, h, lp)
         if collect:
             states.append(st)
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)
@@ -51,7 +58,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
 
 
 def train_loss(params, batch, cfg, dims: Dims):
-    """The loss value and its metrics (no backward in this port yet)."""
+    """(loss, metrics): differentiable in the params."""
     h, _ = forward(params, cfg, dims, tokens=batch.get("tokens"),
                    embeds=batch.get("embeds"), mode="train")
     return LS.lm_loss(h, params["embed"].T, batch["labels"],

@@ -3,17 +3,24 @@
 qwen3-moe, internlm2, qwen2.5-14b/3b and qwen2-0.5b.
 
 The reference's `lax.scan` over the stacked layer params is a Python loop
-over the layer axis here; its `jax.checkpoint` has no counterpart in this
-forward-only port. On CUDA tensors the causal attention of `forward` and
-`prefill` is kernel E (`layers.chunked_attention`); decode is plain torch.
+over the layer axis here (`tree_unbind`: one `torch.unbind` a stacked
+leaf, whose backward stacks the layers' gradients once, where an index a
+layer would build a zero gradient of the whole stack for each), and its
+per-layer `jax.checkpoint` in train mode is `remat`
+(`torch.utils.checkpoint`, nothing saved inside a layer). On CUDA tensors
+the causal attention of `forward` and `prefill` is kernel E
+(`layers.chunked_attention`), differentiable, so in train mode E runs
+twice a layer and step: the forward and the backward's recompute. Decode
+is plain torch.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.common.treeutil import tree_index
+from repro_torch.common.treeutil import tree_index, tree_unbind
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
@@ -43,6 +50,18 @@ def _stack(trees: list):
 def layer_params(params, li: int) -> dict:
     """Layer `li`'s slice of the stacked ``params["layers"]``."""
     return tree_index(params["layers"], li)
+
+
+def remat(fn, mode: str, *args):
+    """`fn(*args)`; in train mode under autograd, rematerialized in
+    backward (`torch.utils.checkpoint`, non-reentrant): the reference's
+    `jax.checkpoint(..., nothing_saveable)`. Memory only, values
+    unchanged. The layers draw no random numbers, so no RNG state is
+    kept."""
+    if mode == "train" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
@@ -94,15 +113,19 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     collect_kv = mode == "prefill"
     aux = torch.zeros((), device=h.device)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        lp = layer_params(params, li)
+
+    def body(h, lp):
         h, kv = B.apply_attn(lp["attn"], h, dims, sin=sin, cos=cos,
                              causal=True, mode=mode)
         if cfg.is_moe:
             h, a, _dropped = B.apply_moe(lp["moe"], h, dims)
+            return h, a, kv
+        return B.apply_mlp(lp["mlp"], h, dims), None, kv
+
+    for lp in tree_unbind(params["layers"], cfg.n_layers):
+        h, a, kv = remat(body, mode, h, lp)
+        if a is not None:
             aux = aux + a
-        else:
-            h = B.apply_mlp(lp["mlp"], h, dims)
         if collect_kv:
             ks.append(kv[0].to(dims.compute_dtype))
             vs.append(kv[1].to(dims.compute_dtype))
@@ -113,7 +136,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
 
 
 def train_loss(params, batch, cfg, dims: Dims):
-    """The loss value and its metrics (no backward in this port yet)."""
+    """(loss + MoE aux loss, metrics): differentiable in the params."""
     h, aux, _ = forward(params, cfg, dims,
                         tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                         positions=batch.get("positions"), mode="train")

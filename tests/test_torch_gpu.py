@@ -403,3 +403,120 @@ def test_cuda_bench_run_fast_reproduces_the_reference_artifacts(tmp_path):
     assert {"flash_ref_us", "kv_quant_us", "ssd_ref_us", "flash_kernel_us",
             "kv_quant_kernel_us", "ssd_kernel_us"} <= set(got["kernel_micro"])
     assert got["device"]["figure_backend"] == "mega"
+
+
+# ---------------------------------------------------------------- training
+#: per family: a reduced arch, and the gradient leaves that reach the loss
+#: only through kernel E (attention q/k/v) or F (the Mamba projections)
+TRAIN_ARCHS = {
+    "qwen2-0.5b": ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv"),
+    "qwen3-moe-235b-a22b": ("layers/attn/wq", "layers/attn/wk"),
+    "mamba2-130m": ("layers/wx", "layers/wB", "layers/wC", "layers/wdt"),
+    "zamba2-7b": ("groups/wx", "groups/wB", "shared/attn/wq",
+                  "shared/attn/wk"),
+    "seamless-m4t-large-v2": ("enc_layers/attn/wq", "dec_layers/self/wk",
+                              "dec_layers/cross/wv")}
+
+
+def _train_case(arch, device):
+    from repro_torch.common.config import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.dims import make_dims
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_state
+    cfg = get_arch(arch).reduced()
+    dims = make_dims(cfg, tp=1, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    state = make_state(torch.Generator().manual_seed(0), cfg, dims,
+                       OptConfig(), device="cpu")
+    kind = ("encdec" if cfg.family == "encdec"
+            else ("embeds" if cfg.frontend == "embed" else "tokens"))
+    batch = SyntheticLMData(cfg.vocab_size, batch=2, seq=64, seed=0,
+                            embed_dim=cfg.d_model, kind=kind).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    from repro_torch.common.treeutil import tree_map
+    return cfg, dims, tree_map(lambda x: x.to(device), state["params"]), \
+        batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(TRAIN_ARCHS))
+def test_cuda_gradients_flow_through_kernels_e_and_f(arch):
+    """Each family's reduced `train_loss` gradient on the card (E and F
+    forward, the Functions' backward) equals the same call with no kernel
+    (`chip_smoke.plain_train`) and the CPU's, every leaf within
+    `MODEL_REL`; the leaves that reach the loss only through E or F get a
+    non-zero gradient. Before the Functions, a kernel's output had no
+    autograd node and these gradients were zero."""
+    from repro_torch.common.treeutil import flat_paths, tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import make_grad_fn
+    _gpu_float_setup()
+    cfg, dims, params, batch = _train_case(arch, "cuda")
+    fn = make_grad_fn(cfg, dims)
+    before = (fa.LAUNCHES, ssd.LAUNCHES)
+    loss, _, grads = fn(params, batch)
+    assert fa.LAUNCHES > before[0] or cfg.family == "ssm"
+    assert ssd.LAUNCHES > before[1] or cfg.family in ("dense", "moe",
+                                                      "encdec")
+    with cs.plain_train(fa, ssd, ops):
+        ploss, _, pgrads = fn(params, batch)
+    _, _, cparams, cbatch = _train_case(arch, "cpu")
+    closs, _, cgrads = fn(cparams, cbatch)
+    cs.held(torch, loss, ploss, f"{arch} loss")
+    cs.held(torch, loss, closs, f"{arch} loss vs CPU")
+    got = dict(zip(flat_paths(grads), tree_leaves(grads)))
+    for path, p, c in zip(flat_paths(pgrads), tree_leaves(pgrads),
+                          tree_leaves(cgrads)):
+        cs.held(torch, got[path], p, f"{arch} gradient {path}")
+        cs.held(torch, got[path], c, f"{arch} gradient {path} vs CPU")
+    for path in TRAIN_ARCHS[arch]:
+        assert float(got[path].abs().max()) > 0, (arch, path)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_failure_in_a_train_step_raises():
+    """A kernel that fails inside a training step raises out of the step;
+    nothing swaps in the plain version."""
+    from unittest import mock
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.step import make_grad_fn
+    _gpu_float_setup()
+    cfg, dims, params, batch = _train_case("qwen2-0.5b", "cuda")
+
+    def broken(*a, **kw):
+        raise RuntimeError("kernel E failed")
+    with mock.patch.object(fa, "_launch", broken):
+        with pytest.raises(RuntimeError, match="kernel E failed"):
+            make_grad_fn(cfg, dims)(params, batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_cuda_checkpoint_round_trip_is_bit_exact(tmp_path, moment_dtype):
+    """A CUDA train state after one step (bf16 moments included, factored
+    v) written by the engine and restored onto the card bit for bit."""
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointEngine
+    from repro_torch.common.treeutil import tree_leaves
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_state, make_train_step
+    _gpu_float_setup()
+    cfg, dims, _, batch = _train_case("qwen2-0.5b", "cuda")
+    ocfg = OptConfig(moment_dtype=moment_dtype, factored_v=True)
+    state = make_state(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       dims, ocfg)
+    state, _ = make_train_step(cfg, dims, ocfg)(state, batch)
+    eng = CheckpointEngine(CheckpointConfig(directory=str(tmp_path),
+                                            interval=1, n_banks=3))
+    eng.force_snapshot(1, state)
+    eng.flush_all_now()
+    eng.wait()
+    restored, step = eng.restore(state)
+    assert step == 1
+    for a, b in zip(tree_leaves(state), tree_leaves(restored)):
+        assert a.dtype == b.dtype and b.device.type == "cuda"
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)

@@ -1,7 +1,7 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
 scripts (`benchmarks_torch/*.py`, `examples/dram_sweep_torch.py`,
-`examples/serve_refresh_torch.py`, `tools/check_commands_torch.py`)
-import neither `jax` nor anything of
+`examples/serve_refresh_torch.py`, `examples/quickstart_torch.py`,
+`tools/check_commands_torch.py`) import neither `jax` nor anything of
 the JAX package `repro`."""
 import pathlib
 import pkgutil
@@ -17,6 +17,7 @@ PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "benchmarks_torch").glob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "dram_sweep_torch.py",
     ROOT / "examples" / "serve_refresh_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
     ROOT / "tools" / "check_commands_torch.py"]
 
 #: an import statement that names jax or the JAX package (not
@@ -61,7 +62,12 @@ def test_port_has_the_expected_modules():
               "repro_torch.models.loss", "repro_torch.models.transformer",
               "repro_torch.models.api", "repro_torch.models.convert",
               "repro_torch.models.mamba", "repro_torch.models.hybrid",
-              "repro_torch.models.encdec"):
+              "repro_torch.models.encdec", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.train",
+              "repro_torch.train.step", "repro_torch.train.trainer",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.engine",
+              "repro_torch.launch.train"):
         assert m in mods, m
 
 
@@ -86,7 +92,10 @@ def test_importing_every_port_module_pulls_in_neither_jax_nor_repro():
 #: the port's figure, bench, example and tool scripts
 SCRIPTS = ("benchmarks_torch/fig_refresh.py",
            "benchmarks_torch/bench_framework.py", "benchmarks_torch/run.py",
+           "benchmarks_torch/train_layout.py",
+           "benchmarks_torch/train_profile.py",
            "examples/dram_sweep_torch.py", "examples/serve_refresh_torch.py",
+           "examples/quickstart_torch.py",
            "tools/check_commands_torch.py")
 
 

@@ -67,8 +67,11 @@ def test_lifecycle_raises_on_a_timeout():
 
 def test_run_py_writes_the_serving_entries(tmp_path, monkeypatch):
     """`run.py --fast --device cpu` runs the three serving entries and
-    writes their payloads, each equal in scheduling to the reference's;
-    only the training bench (`darp_ckpt`) is left out."""
+    writes their payloads, each equal in scheduling to the reference's,
+    and the training bench (`darp_ckpt`, here a stand-in that returns the
+    reference's artifact: its own test, with the real trainer, is
+    `tests/test_torch_checkpoint.py`) at `--fast`'s 20 steps on the
+    CPU."""
     spec = importlib.util.spec_from_file_location(
         "bench_run_torch_cpu", ROOT / "benchmarks_torch" / "run.py")
     run = importlib.util.module_from_spec(spec)
@@ -83,6 +86,11 @@ def test_run_py_writes_the_serving_entries(tmp_path, monkeypatch):
             calls[_name] = kw
             return _real(*a, **kw)
         monkeypatch.setattr(run.BF, name, spy)
+
+    def ckpt_stub(**kw):
+        calls["bench_darp_ckpt"] = kw
+        return cs.load_artifact("darp_ckpt")
+    monkeypatch.setattr(run.BF, "bench_darp_ckpt", ckpt_stub)
     for name in ("fig_grids", "fig1", "fig2", "fig3", "sweep_grid",
                  "closed_loop", "sweep_multirank", "sweep_subarray",
                  "command_trace"):
@@ -93,7 +101,8 @@ def test_run_py_writes_the_serving_entries(tmp_path, monkeypatch):
     got = {p.stem: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
     assert {"serving_policies", "serving_lifecycle", "serving_cosim",
             "sarp_decode_bytes", "device"} <= set(got)
-    assert "darp_ckpt" not in got
+    assert calls["bench_darp_ckpt"] == {"steps": 20, "device": "cpu"}
+    assert got["darp_ckpt"] == cs.load_artifact("darp_ckpt")
     cs.check_serving_artifacts(got)
 
 
