@@ -6,6 +6,10 @@ Needs one NVIDIA GPU (written for an H100), PyTorch built for CUDA and
 (`src/repro_torch`) only — nothing of JAX, nothing of the JAX package —
 and prints one JSON object a line:
 
+  0. contract the port's static checks (`repro_torch.analysis`, as
+              `tools/check_contract_torch.py` runs them: the reference's
+              passes on the port's files and `cuda-lint`), before anything
+              is built: findings, suppressed, seconds; a finding fails;
   1. card     the card's name and power limit, as `nvidia-smi` gives them
               (also printed once as the raw CSV line);
   2. build    the `nvcc` build of `src/repro_torch/kernels/csrc/*.cu` from
@@ -157,11 +161,25 @@ and prints one JSON object a line:
               checkpoint round trip of a CUDA train state with bf16
               moments; `python -m repro_torch.launch.train --reduced
               --steps 12 --device cuda --ckpt-dir ...` exiting 0.
+ 12. dry run  the one-card dry run held on the card (path `dryrun`), for
+              qwen2-0.5b and mamba2-130m at `model_train_step`'s 2 x 512,
+              f32: `launch.specs.state_shapes_and_specs`' `meta` leaves
+              equal `make_state`'s on the card, shape and dtype, leaf for
+              leaf; `parallel.op_analysis.analyze_ops` of the train step
+              on `meta` counts exactly the FLOPs and product FLOPs of the
+              same step on the card with the plain route patched in
+              (`plain_route`), and the step through kernels E and F counts
+              fewer (a ctypes launch is invisible to a dispatch mode); the
+              step's ms on each route beside the dry run's bound. After
+              the timings, `python -m repro_torch.launch.dryrun` over every
+              shape of one arch a family (`DRYRUN_FAMILY_ARCHS`, one
+              process an arch, all started together), one line a cell,
+              every cell `ok`.
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-nineteen paths and read just after it, and reported per path; a path that
+twenty paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -188,13 +206,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks used for the bounds (NVIDIA data sheet):
-# device memory rate, and the float32 rate outside the tensor cores. The
-# kernels here do int32 arithmetic: the SM issues int32 on half of its
-# float32 lanes and the float32 figure counts a fused multiply-add as 2.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-INT32_OPS = FP32_FLOPS / 4
+if os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    # published H100 SXM peaks used for the bounds (NVIDIA data sheet),
+    # defined once in the dry run's `op_analysis`: device memory rate, the
+    # float32 rate outside the tensor cores, the bf16 and TF32 tensor-core
+    # rates. The sweep kernels do int32 arithmetic: the SM issues int32 on
+    # half of its float32 lanes and the float32 figure counts a fused
+    # multiply-add as 2.
+    from repro_torch.parallel.op_analysis import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.parallel.op_analysis import PEAK_FLOPS
+    FP32_FLOPS = PEAK_FLOPS["float32"]
+    INT32_OPS = FP32_FLOPS / 4
+    BF16_TC_FLOPS = PEAK_FLOPS["bfloat16"]  # dense tensor cores, bf16
+    TF32_TC_FLOPS = PEAK_FLOPS["tf32"]      # dense tensor cores, TF32
 
 FIG3_POLICIES = ("ref_ab", "ref_pb", "darp", "sarp_pb", "dsarp", "elastic",
                  "hira", "ideal")
@@ -817,8 +842,6 @@ DECODE_B, DECODE_MAXP = 8, 512            # 8 sequences of up to 32768 tokens
 DECODE_PAGES = DECODE_B * DECODE_MAXP + 8
 PREFILL_S, TRAIN_S = 4096, 512
 SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 4096, 24, 64, 128, 128
-BF16_TC_FLOPS = 989e12                   # dense tensor cores, bf16
-TF32_TC_FLOPS = 495e12                   # dense tensor cores, TF32
 
 # Bars (atol, rtol) of each float kernel against its plain version on the
 # card. float32: the reference's own (tests/test_kernels.py). bfloat16:
@@ -2433,6 +2456,148 @@ def trainer_ckpt_path(torch, np):
                 + cli.stdout.strip().splitlines()[-1:])
 
 
+#: the dry run held on the card: `model_train_step`'s cases at accum 1
+DRYRUN_ARCHS = (MODEL_ARCH, SSM_ARCH)
+
+
+def plain_route(layers):
+    """A context in which the models' card routes (`_flash_on_card`,
+    `_ssd_on_card`) are the plain route that CPU and `meta` tensors take
+    (`chunked_attention_plain`, `ssd_chunked_plain`): a step on the card
+    then dispatches the same aten ops as the dry run counts on `meta`."""
+    import contextlib
+    from unittest import mock
+
+    def attention(q, k, v, *, causal, q_offset):
+        return layers.chunked_attention_plain(q, k, v, causal=causal,
+                                              q_offset=q_offset)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(layers, "_flash_on_card",
+                                          attention))
+    stack.enter_context(mock.patch.object(layers, "_ssd_on_card",
+                                          layers.ssd_chunked_plain))
+    return stack
+
+
+def dryrun_path(torch, np):
+    """The one-card dry run held on the card, for qwen2-0.5b and
+    mamba2-130m at `model_train_step`'s 2 x 512, f32, accum 1:
+    (a) `launch.specs.state_shapes_and_specs`' `meta` leaves equal, leaf
+    for leaf in shape and dtype, the state `make_state` builds on the
+    card; (b) `analyze_ops` of the train step on `meta` counts exactly
+    the FLOPs and product FLOPs of the same step on the card with the
+    plain route patched in (`plain_route`), and the same step through
+    kernels E and F counts fewer: their ctypes launches are invisible to
+    a dispatch mode; (c) the step's measured ms (CUDA events, and the
+    device's busy ms under `torch.profiler`) on each route beside the dry
+    run's `bound_s`, the share of the bound each reaches."""
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.common.treeutil import tree_leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import layers
+    from repro_torch.parallel.op_analysis import analyze_ops
+    from repro_torch.train import make_train_step
+    report = {}
+    for name in DRYRUN_ARCHS:
+        cfg, dims, ocfg, state, batch = train_case(torch, name, 1)
+        shape = ShapeConfig("model_train_step", TRAIN_S, TRAIN_B, "train")
+        meta_state, _ = SP.state_shapes_and_specs(cfg, dims, "train", shape)
+        sig = [(tuple(x.shape), x.dtype) for x in tree_leaves(meta_state)]
+        if sig != [(tuple(x.shape), x.dtype) for x in tree_leaves(state)]:
+            raise AssertionError(f"dryrun {name}: the meta state's leaves "
+                                 f"differ from make_state's on the card")
+        meta_batch = {k: torch.empty_like(v, device="meta")
+                      for k, v in batch.items()}
+        meta = analyze_ops(make_train_step(cfg, dims, ocfg, device="meta"),
+                           meta_state, meta_batch)
+        step = make_train_step(cfg, dims, ocfg, device="cuda")
+        with plain_route(layers):
+            card_plain = analyze_ops(step, state, batch)
+            plain_ms = time_cuda(torch, lambda i: step(state, batch), 3)
+            plain_prof = device_share(torch, lambda: step(state, batch))
+        card_kernels = analyze_ops(step, state, batch)
+        kernels_ms = time_cuda(torch, lambda i: step(state, batch), 3)
+        kernels_prof = device_share(torch, lambda: step(state, batch))
+        for what in ("flops", "dot_flops"):
+            if getattr(meta, what) != getattr(card_plain, what):
+                raise AssertionError(
+                    f"dryrun {name}: {what} on meta {getattr(meta, what)} "
+                    f"!= on the card's plain route "
+                    f"{getattr(card_plain, what)}")
+        if not card_kernels.dot_flops < card_plain.dot_flops:
+            raise AssertionError(f"dryrun {name}: the kernel route counts "
+                                 f"no fewer product FLOPs")
+        roof = meta.roofline()
+        bound_ms = 1e3 * roof["bound_s"]
+        report[name] = dict(
+            batch=[TRAIN_B, TRAIN_S], dtype="float32",
+            state_leaves=len(sig), meta_leaves_equal_card=True,
+            meta=dict(flops=meta.flops, dot_flops=meta.dot_flops,
+                      hbm_bytes=meta.hbm_bytes, ops=meta.n_instructions),
+            card_plain_route=dict(flops=card_plain.flops,
+                                  dot_flops=card_plain.dot_flops,
+                                  hbm_bytes=card_plain.hbm_bytes,
+                                  ops=card_plain.n_instructions),
+            card_kernel_route=dict(flops=card_kernels.flops,
+                                   dot_flops=card_kernels.dot_flops,
+                                   hbm_bytes=card_kernels.hbm_bytes,
+                                   ops=card_kernels.n_instructions),
+            flops_equal=True, roofline=roof, bound_ms=bound_ms,
+            plain_route=dict(step_ms=plain_ms, profile=plain_prof,
+                             bound_share=bound_ms / plain_ms),
+            kernel_route=dict(step_ms=kernels_ms, profile=kernels_prof,
+                              bound_share=bound_ms / kernels_ms))
+        del state
+        torch.cuda.empty_cache()
+    return dict(phase="dryrun", note="bound_ms is the dry run's bound of "
+                "the plain route's ops (meta); E and F are invisible to "
+                "its count on the kernel route", cases=report)
+
+
+#: one arch a family: every applicable shape of each runs in the dry
+#: run's matrix here (`python -m repro_torch.launch.dryrun` runs all ten;
+#: the MoE family's other arch, qwen3-moe-235b-a22b, has 94 layers and
+#: alone would take twice as long)
+DRYRUN_FAMILY_ARCHS = (MODEL_ARCH, "llama4-maverick-400b-a17b", SSM_ARCH,
+                       HYBRID_ARCH, ENCDEC_ARCH)
+
+
+def dryrun_matrix(archs):
+    """`python -m repro_torch.launch.dryrun --arch A` for each of `archs`,
+    all started together (the cells run on `meta`, on the host's cores),
+    into a temporary directory: one JSON line a cell; a cell that is not
+    `ok`, or a run that does not exit 0, fails."""
+    import glob
+    import tempfile
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--out", tmp], cwd=HERE, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for arch in archs]
+        logs = [p.communicate()[0] for p in procs]
+        for arch, p, log in zip(archs, procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"dryrun --arch {arch} exited "
+                                     f"{p.returncode}:\n{log[-2000:]}")
+        for path in sorted(glob.glob(os.path.join(tmp, "*.json"))):
+            with open(path) as f:
+                rec = json.load(f)
+            if not rec["ok"]:
+                raise AssertionError(f"dryrun cell {rec['arch']} "
+                                     f"{rec['shape']}: {rec.get('error')}")
+            line = {k: rec[k] for k in ("arch", "shape", "mesh", "ok",
+                                        "analyze_s", "fits_one_card",
+                                        "roofline", "roofline_fraction")}
+            line["memory_gb"] = {k: rec["memory"][k] for k in (
+                "argument_gb", "output_gb")}
+            emit(dict(phase="dryrun_cell", **line))
+            out.append(line)
+    return out
+
+
 def time_family_kernels(torch):
     """F and E at the shapes the three family paths give them, beside
     their plain versions, bounds and, for E, SDPA (CUDA events; these
@@ -2556,6 +2721,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    # 0. contract: the port's static checks, before anything is built
+    from repro_torch.analysis import RepoContext, run_passes
+    contract = run_passes(RepoContext(HERE))
+    emit({"phase": "contract", "findings": len(contract.findings),
+          "suppressed": len(contract.suppressed),
+          "seconds": round(time.perf_counter() - t_start, 3)})
+    if contract.findings:
+        raise AssertionError("contract findings:\n" + "\n".join(
+            map(str, contract.findings)))
 
     # 1. card
     smi = subprocess.run(
@@ -2699,6 +2874,11 @@ def main() -> int:
                 np)
     ckp["seconds"] = round(time.perf_counter() - t_ckpt, 3)
     emit(dict(ckp, launches=paths["trainer_ckpt"]))
+    t_dry = time.perf_counter()
+    dry = drive("dryrun", "flash_attention+mamba2_ssd", dryrun_path, torch,
+                np)
+    dry["seconds"] = round(time.perf_counter() - t_dry, 3)
+    emit(dict(dry, launches=paths["dryrun"]))
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)
@@ -2717,6 +2897,14 @@ def main() -> int:
     emit({"phase": "timing", "arbiter": ta, "arbiter_paper_shape": ta_paper,
           "megakernel": tm, "megakernel_paper_grid": tm_paper,
           "open_megakernel": to, "open_megakernel_open_grid": to_grid, **tf,
+          "seconds_total": round(time.perf_counter() - t_start, 1)})
+
+    # the dry run's matrix on meta (no device work)
+    t_matrix = time.perf_counter()
+    cells = dryrun_matrix(DRYRUN_FAMILY_ARCHS)
+    emit({"phase": "dryrun_matrix", "archs": list(DRYRUN_FAMILY_ARCHS),
+          "cells": len(cells), "ok": len(cells),
+          "seconds": round(time.perf_counter() - t_matrix, 1),
           "seconds_total": round(time.perf_counter() - t_start, 1)})
     fl_bf, fl_32 = tf["flash_attention_bfloat16"], tf["flash_attention_float32"]
     emit({"kernels": [

@@ -212,7 +212,7 @@ def _pick_one_torch(cand, key, allow):
     kmax = torch.where(cand, key, torch.full_like(key, _NEG))
     b = torch.argmax(kmax, dim=1)
     ok = allow & cand.gather(1, b[:, None])[:, 0]
-    arB = torch.arange(B, device=cand.device)
+    arB = torch.arange(B, dtype=torch.int64, device=cand.device)
     return (arB[None, :] == b[:, None]) & ok[:, None]
 
 
@@ -233,7 +233,7 @@ def select_batch_torch(*, kind, lag, ready, idle, demand, write_window,
     if not nb:
         nb = B
     dev = lag.device
-    arB = torch.arange(B, device=dev)
+    arB = torch.arange(B, dtype=torch.int64, device=dev)
     vec = (kind >= KIND_RR) & (kind < KIND_CUSTOM)
     bud = budget[:, None]
 

@@ -279,7 +279,7 @@ def _refresh_phases(cfg: TickCfg, cst: dict, s: dict, t: int, active,
     REFI, RFC_PB, RFC_AB = cst["REFI"], cst["RFC_PB"], cst["RFC_AB"]
     G = kind.shape[0]
     dev = kind.device
-    arG = torch.arange(G, device=dev)
+    arG = torch.arange(G, dtype=torch.int64, device=dev)
     sub_of_col = torch.arange(S, dtype=I32, device=dev).repeat(B)[None, :]
 
     def i32(x):
@@ -386,7 +386,7 @@ def _serve_phase(cfg: TickCfg, cst: dict, s: dict, t: int, scores,
     HIT, MISS, WR = cst["HIT"], cst["MISS"], cst["WR"]
     TURN, RTR, SARP_PEN = cst["TURN"], cst["RTR"], cst["SARP_PEN"]
     G = sarp.shape[0]
-    arG = torch.arange(G, device=sarp.device)
+    arG = torch.arange(G, dtype=torch.int64, device=sarp.device)
 
     def i32(x):
         return x.to(I32)
@@ -469,8 +469,9 @@ def open_body(cfg: TickCfg, cst: dict, scores, s: dict) -> dict:
     n_pb, n_tot = cst["n_pb"], cst["n_tot"]
     G = n_pb.shape[0]
     dev = n_pb.device
-    arG = torch.arange(G, device=dev)             # int64 index helpers
-    flat_gb = arG[:, None] * B + torch.arange(B, device=dev)[None, :]
+    arG = torch.arange(G, dtype=torch.int64, device=dev)  # index helpers
+    flat_gb = (arG[:, None] * B
+               + torch.arange(B, dtype=torch.int64, device=dev)[None, :])
 
     def i32(x):
         return x.to(I32)
@@ -542,9 +543,9 @@ def closed_body(cfg: TickCfg, cst: dict, scores, s: dict) -> dict:
     n_req, mlp_col = cst["n_req"], cst["mlp"][:, None]
     G = n_req.shape[0]
     dev = n_req.device
-    arG = torch.arange(G, device=dev)             # int64 index helpers
-    arB = torch.arange(B, device=dev)
-    arC = torch.arange(C, device=dev)
+    arG = torch.arange(G, dtype=torch.int64, device=dev)  # index helpers
+    arB = torch.arange(B, dtype=torch.int64, device=dev)
+    arC = torch.arange(C, dtype=torch.int64, device=dev)
     flat_gc = arG[:, None] * C + arC[None, :]
     flat_gb = arG[:, None] * B + arB[None, :]
 

@@ -14,8 +14,8 @@ Beside the kernel, as beside every kernel of this package:
   * `flash_attention` is the wrapper around the hand-written kernels
     `flash_attention_bf16_kernel` and `flash_attention_f32_kernel`
     (`csrc/flash_attention.cu`). It takes the plain version only for
-    tensors that lie on the CPU; for CUDA tensors it launches the kernel
-    of their dtype or raises;
+    tensors that lie on the CPU (or on `meta`, shapes only); for CUDA
+    tensors it launches the kernel of their dtype or raises;
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
@@ -98,7 +98,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     _check(fn, q, k, v)
     sq, skv = q.shape[1], k.shape[1]
     q_blk, kv_blk = blocks(sq, skv)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_torch(q, k, v, causal=causal)
     return _launch(fn, q, k, v, causal, q_blk, kv_blk)
 
@@ -131,7 +131,7 @@ def flash_attention_ragged(q, k, v, *, causal: bool = True):
     rows = padded_rows(sq)
     if rows != sq:
         q = torch.nn.functional.pad(q, (0, 0, 0, rows - sq)).contiguous()
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         out = flash_attention_torch(q, k, v, causal=causal)
     else:
         out = _launch(fn, q, k, v, causal, min(BLOCK, rows), 1)

@@ -10,8 +10,8 @@ Beside the kernel, as beside every kernel of this package:
   * the plain PyTorch version is the oracle `ref.kv_quant`;
   * `kv_quant` is the wrapper around the hand-written kernel
     `kv_quant_kernel` (`csrc/kv_quant.cu`). It takes the plain version
-    only for a tensor that lies on the CPU; for a CUDA tensor it
-    launches the kernel or raises;
+    only for a tensor that lies on the CPU (or on `meta`, shapes only);
+    for a CUDA tensor it launches the kernel or raises;
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
@@ -79,7 +79,7 @@ def kv_quant(pages: torch.Tensor):
     from repro_torch.kernels import _build
     _build.check_tensor("kv_quant", "pages", pages, dtypes=tuple(_DTYPES),
                         ndim=4)
-    if pages.device.type == "cpu":
+    if pages.device.type in ("cpu", "meta"):
         return kv_quant_torch(pages)
     if pages.device.type != "cuda":
         raise ValueError(f"kv_quant: unsupported device {pages.device}")

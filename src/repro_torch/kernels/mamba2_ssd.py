@@ -19,8 +19,8 @@ Beside the kernel, as beside every kernel of this package:
     (`models.layers.ssd_chunked` with a zero residual);
   * `mamba2_ssd` is the wrapper around the hand-written kernel
     `mamba2_ssd_kernel` (`csrc/mamba2_ssd.cu`). It takes the plain
-    version only for tensors that lie on the CPU; for CUDA tensors it
-    launches the kernel or raises;
+    version only for tensors that lie on the CPU (or on `meta`, shapes
+    only); for CUDA tensors it launches the kernel or raises;
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
@@ -115,7 +115,7 @@ def _run(fn, x, dt, A, B_in, C_in, chunk, with_state):
     l = min(chunk, s)
     if s % l:
         raise ValueError(f"{fn}: chunk {l} does not divide S={s}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         if with_state:
             return mamba2_ssd_with_state_torch(x, dt, A, B_in, C_in,
                                                chunk=chunk)

@@ -126,7 +126,8 @@ def _serial_attend(q, kd, vd, page_table, seq_lens, page_size):
         k_seq = k_seq.repeat_interleave(group, dim=2)
         v_seq = v_seq.repeat_interleave(group, dim=2)
     s = torch.einsum("bhd,bshd->bhs", q.float(), k_seq.float()) / math.sqrt(d)
-    mask = (torch.arange(maxp * page_size, device=q.device)[None, None, :]
+    mask = (torch.arange(maxp * page_size, dtype=torch.int64,
+                         device=q.device)[None, None, :]
             < seq_lens.long()[:, None, None])
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)

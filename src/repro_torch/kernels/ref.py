@@ -13,8 +13,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
     if causal:
         sq, sk = q.shape[1], k.shape[1]
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
+        i64 = dict(dtype=torch.int64, device=q.device)
+        mask = (torch.arange(sq, **i64)[:, None]
+                >= torch.arange(sk, **i64)[None, :])
         s = torch.where(mask[None], s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
@@ -49,7 +50,8 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale,
             p = int(page_table[bi, pi])
             ks.append(k_pages[p].float() * k_scale[p][None, :, None])
             vs.append(v_pages[p].float() * v_scale[p][None, :, None])
-        zeros = torch.zeros((0, hkv, d), device=q.device)
+        zeros = torch.zeros((0, hkv, d), dtype=torch.float32,
+                            device=q.device)
         k = torch.cat(ks, 0)[:n] if ks else zeros
         v = torch.cat(vs, 0)[:n] if vs else zeros
         if group > 1:
@@ -71,4 +73,5 @@ def mamba2_ssd_with_state(x, dt, A, B_in, C_in, *, chunk: int):
     oracle: `ssd_chunked`'s two outputs with a zero residual)."""
     from repro_torch.models.layers import ssd_chunked_plain
     return ssd_chunked_plain(x, dt, A, B_in, C_in,
-                             torch.zeros(A.shape, device=A.device), chunk)
+                             torch.zeros(A.shape, dtype=torch.float32,
+                                         device=A.device), chunk)

@@ -18,8 +18,9 @@ Beside the kernel, as beside every kernel of this package:
     and zero-length rule;
   * `refresh_paged_attention` is the wrapper around the hand-written
     kernel `paged_attention_kernel` (`csrc/refresh_paged_attention.cu`).
-    It takes the plain version only for tensors that lie on the CPU; for
-    CUDA tensors it launches the kernel or raises;
+    It takes the plain version only for tensors that lie on the CPU (or
+    on `meta`, shapes only); for CUDA tensors it launches the kernel or
+    raises;
   * `LAUNCHES` is a plain integer, incremented where the kernel is
     launched and nowhere else.
 
@@ -70,7 +71,8 @@ def paged_attention_torch(q, k_pages, v_pages, k_scale, v_scale,
          ).reshape(b, maxp * page_size, hkv, d)
     qs = (q.float() * (1.0 / math.sqrt(d))).reshape(b, hkv, group, d)
     s = torch.einsum("bkgd,bskd->bkgs", qs, k)
-    valid = (torch.arange(maxp * page_size, device=q.device)[None, :]
+    valid = (torch.arange(maxp * page_size, dtype=torch.int64,
+                          device=q.device)[None, :]
              < seq_lens.to(q.device).long()[:, None])[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
@@ -114,7 +116,7 @@ def refresh_paged_attention(q, k_pages, v_pages, k_scale, v_scale,
             f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}, page_table "
             f"{tuple(page_table.shape)}, seq_lens {tuple(seq_lens.shape)}, "
             f"page_size {page_size}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return paged_attention_torch(q, k_pages, v_pages, k_scale, v_scale,
                                      page_table, seq_lens,
                                      page_size=page_size)

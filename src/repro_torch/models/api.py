@@ -6,6 +6,7 @@ Every family module implements:
   prefill(params, batch, cfg, dims) -> (logits [B,V], decode_state)
   init_decode_state(cfg, dims, batch, kv_len, device) -> state
   decode_step(params, state, cfg, dims, *, token/embed, pos) -> (logits, state)
+  param_specs(cfg, dims) / decode_state_specs(cfg, dims) -> logical axes
 
 All five families are ported: `dense` and `moe` (transformer), `ssm`
 (mamba), `hybrid` and `encdec`.

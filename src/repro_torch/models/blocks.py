@@ -13,6 +13,9 @@ Conventions:
 
 The reference's sharding annotations and its `shard_map` MoE branch have
 no counterpart on one card: `apply_moe` is the reference's no-mesh path.
+The `*_specs` functions return the reference's logical-axis names of each
+block's params (tuples, one name or None an axis); the dry run and the
+tests read them, and nothing maps them onto devices yet.
 """
 from __future__ import annotations
 
@@ -55,6 +58,30 @@ def init_attn(gen: torch.Generator, dims: Dims, device, *,
         p["bk"] = torch.zeros((nkv, dh), dtype=pdt, device=device)
         p["bv"] = torch.zeros((nkv, dh), dtype=pdt, device=device)
     return p
+
+
+def attn_specs(dims: Dims) -> dict:
+    kv = "kv_heads" if dims.kv_sharded else None
+    s = {
+        "ln": (None,),
+        "wq": ("fsdp", "heads", None),
+        "wk": ("fsdp", kv, None),
+        "wv": ("fsdp", kv, None),
+        "wo": ("heads", None, "fsdp"),
+    }
+    if dims.cfg.attention.qkv_bias:
+        s["bq"] = ("heads", None)
+        s["bk"] = (kv, None)
+        s["bv"] = (kv, None)
+    return s
+
+
+def stack_specs(tree, depth: int = 1):
+    """`tree`'s specs with `depth` leading "stack" axes: the layer axes
+    of a stacked layer tree (never sharded)."""
+    if isinstance(tree, dict):
+        return {k: stack_specs(v, depth) for k, v in tree.items()}
+    return ("stack",) * depth + tuple(tree)
 
 
 def _project_qkv(p, x, dims: Dims, sin, cos, rope: bool):
@@ -145,6 +172,11 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dims: Dims, device,
     }
 
 
+def mlp_specs() -> dict:
+    return {"ln": (None,), "wi": ("fsdp", "ff"), "wg": ("fsdp", "ff"),
+            "wd": ("ff", "fsdp")}
+
+
 def apply_mlp(p: dict, h: torch.Tensor, dims: Dims) -> torch.Tensor:
     x = L.rmsnorm(h, p["ln"], dims.cfg.norm_eps)
     return h + L.gated_mlp(x, p["wi"], p["wg"], p["wd"])
@@ -170,6 +202,20 @@ def init_moe(gen: torch.Generator, dims: Dims, device,
                                out_scale)
         del p["shared"]["ln"]  # shares this block's ln
     return p
+
+
+def moe_specs(dims: Dims) -> dict:
+    s = {
+        "ln": (None,),
+        "router": (None, None),
+        "we_i": ("expert", "fsdp", None),
+        "we_g": ("expert", "fsdp", None),
+        "we_o": ("expert", None, "fsdp"),
+    }
+    if dims.cfg.moe.shared_expert_ff:
+        s["shared"] = {"wi": ("fsdp", "ff"), "wg": ("fsdp", "ff"),
+                       "wd": ("ff", "fsdp")}
+    return s
 
 
 def _moe_capacity(t: int, m) -> int:
@@ -245,6 +291,27 @@ def init_mamba(gen: torch.Generator, dims: Dims, device,
         "conv_C": _norm(gen, (n, w), pdt, device, 0.5),
         "norm_w": torch.ones((di,), dtype=pdt, device=device),
         "wo": _norm(gen, (di, d), pdt, device, out_scale) * chmask[:, None],
+    }
+
+
+def mamba_specs() -> dict:
+    return {
+        "ln": (None,), "wz": ("fsdp", "ff"), "wx": ("fsdp", "ff"),
+        "wB": ("fsdp", None), "wC": ("fsdp", None), "wdt": ("fsdp", "heads"),
+        "dt_bias": ("heads",), "A_log": ("heads",), "Dres": ("heads",),
+        "conv_x": ("ff", None), "conv_B": (None, None), "conv_C": (None, None),
+        "norm_w": ("ff",), "wo": ("ff", "fsdp"),
+    }
+
+
+def mamba_decode_state_specs() -> dict:
+    """Logical axes of one stacked Mamba decode state (`mamba_state_shapes`
+    with the layer axis)."""
+    return {
+        "ssd": ("stack", "batch", "heads", None, None),
+        "conv_x": ("stack", "batch", "ff", None),
+        "conv_B": ("stack", "batch", None, None),
+        "conv_C": ("stack", "batch", None, None),
     }
 
 

@@ -54,6 +54,20 @@ def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
     }
 
 
+def param_specs(cfg, dims: Dims) -> dict:
+    return {
+        "dec_embed": ("vocab", "fsdp"),
+        "enc_layers": B.stack_specs({"attn": B.attn_specs(dims),
+                                     "mlp": B.mlp_specs()}),
+        "dec_layers": B.stack_specs({"self": B.attn_specs(dims),
+                                     "cross": B.attn_specs(dims),
+                                     "mlp": B.mlp_specs()}),
+        "enc_final_ln": (None,),
+        "final_ln": (None,),
+        "lm_head": (None, "vocab"),
+    }
+
+
 def _rope(cfg, bsz, seq, device):
     att = cfg.attention
     pos = torch.arange(seq, device=device)[None, :].expand(bsz, seq)
@@ -132,6 +146,11 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
 
     return {"k": z(kv_len), "v": z(kv_len), "ck": z(enc_len),
             "cv": z(enc_len)}
+
+
+def decode_state_specs(cfg, dims: Dims) -> dict:
+    kv = (None, "batch", "pages", None, None)
+    return {"k": kv, "v": kv, "ck": kv, "cv": kv}
 
 
 def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,

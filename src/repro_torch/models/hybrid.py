@@ -61,6 +61,20 @@ def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
     return p
 
 
+def param_specs(cfg, dims: Dims) -> dict:
+    groups, per, tail = _split(cfg)
+    specs = {
+        "embed": ("vocab", "fsdp"),
+        "groups": B.stack_specs(B.mamba_specs(), 2),
+        "shared": {"attn": B.attn_specs(dims), "mlp": B.mlp_specs()},
+        "final_ln": (None,),
+        "lm_head": (None, "vocab"),
+    }
+    if tail:
+        specs["tail"] = B.stack_specs(B.mamba_specs())
+    return specs
+
+
 def _rope(cfg, bsz, seq, device):
     att = cfg.attention
     pos = torch.arange(seq, device=device)[None, :].expand(bsz, seq)
@@ -141,6 +155,14 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
             "k": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
             "tail_mamba": stacked(tail) if tail else None}
+
+
+def decode_state_specs(cfg, dims: Dims) -> dict:
+    groups, per, tail = _split(cfg)
+    m1 = B.mamba_decode_state_specs()
+    kv = (None, "batch", "pages", None, None)
+    return {"groups_mamba": {k: ("stack",) + v for k, v in m1.items()},
+            "k": kv, "v": kv, "tail_mamba": m1 if tail else None}
 
 
 def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,

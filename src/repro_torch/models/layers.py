@@ -10,8 +10,11 @@ card and are dropped.
 `chunked_attention` is where kernel E enters the model, and
 `ssd_chunked` where kernel F does: on CUDA tensors they launch
 `repro_torch.kernels.flash_attention` / `mamba2_ssd` (or raise), on CPU
-tensors they run the reference's loops (`ssd_chunked_plain`, the plain
-SSD, is also F's oracle). On the card both launches sit inside
+tensors they run the reference's loops (`chunked_attention_plain`,
+`ssd_chunked_plain`, the latter also F's oracle), and so on `meta`
+tensors, which carry shapes only (the dry run, `repro_torch.launch.dryrun`,
+as the reference's lowers its models' plain path); any other device
+raises. On the card both launches sit inside
 `torch.autograd.Function`s (`kernels.ops`) whose backward is autograd of
 the plain version recomputed from the saved inputs, as the reference's
 `flash_attention_trainable` differentiates its kernel: the kernel runs
@@ -28,6 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as _ops
+
+#: devices whose tensors take the plain route: the CPU, and `meta`, which
+#: computes shapes only and whose values are never read
+PLAIN_DEVICES = ("cpu", "meta")
 
 # --------------------------------------------------------------------- norms
 
@@ -60,11 +67,15 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     pos = positions.float()
     if positions.ndim == 3:
         assert mrope_sections is not None and sum(mrope_sections) == half
-        sec_id = torch.repeat_interleave(
-            torch.arange(3, device=dev),
-            torch.tensor(mrope_sections, device=dev))              # [half]
         angles3 = pos[..., None] * inv_freq[None, None, None, :]   # [3,B,S,half]
-        onehot = F.one_hot(sec_id, 3).float()                      # [half,3]
+        # channel c belongs to section i where starts[i] <= c < ends[i];
+        # comparisons with ints dispatch the same ops on every device
+        # (`one_hot` checks its input's range on the host, not on meta)
+        idx = torch.arange(half, device=dev)
+        ends = [sum(mrope_sections[:i + 1]) for i in range(3)]
+        starts = [0] + ends[:2]
+        onehot = torch.stack([(idx >= lo) & (idx < hi) for lo, hi in
+                              zip(starts, ends)], dim=1).float()   # [half,3]
         angles = torch.einsum("tbsh,ht->bsh", angles3, onehot)
     else:
         angles = pos[..., None] * inv_freq[None, None, :]          # [B,S,half]
@@ -101,14 +112,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention. q: [B,Sq,Hq,D]; k/v: [B,Skv,Hkv,D]. Returns [B,Sq,Hq,D].
 
     On CUDA tensors: kernel E (`_flash_on_card`), which raises where it
-    cannot compute the same function. On CPU tensors: the reference's
-    memory-bounded form, an online softmax over KV blocks looped over Q
-    blocks, KV unexpanded and q heads grouped [B,Sq,Hkv,G,D].
+    cannot compute the same function. On CPU tensors, and on `meta`
+    tensors (shapes only: the dry run), `chunked_attention_plain`.
     """
     if q.device.type == "cuda":
         return _flash_on_card(q, k, v, causal=causal, q_offset=q_offset)
-    if q.device.type != "cpu":
+    if q.device.type not in PLAIN_DEVICES:
         raise ValueError(f"chunked_attention: unsupported device {q.device}")
+    return chunked_attention_plain(q, k, v, causal=causal, q_block=q_block,
+                                   kv_block=kv_block, q_offset=q_offset)
+
+
+def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool,
+                            q_block: int = 1024, kv_block: int = 1024,
+                            q_offset: int = 0) -> torch.Tensor:
+    """`chunked_attention` as the reference computes it, on any device:
+    its memory-bounded form, an online softmax over KV blocks looped over
+    Q blocks, KV unexpanded and q heads grouped [B,Sq,Hkv,G,D]."""
+    dev = q.device
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -125,14 +147,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for qi in range(nq):
         qblk = qr[qi].float() * scale
-        m = torch.full((b, hkv, g, q_block), -torch.inf)
-        l = torch.zeros((b, hkv, g, q_block))
-        acc = torch.zeros((b, hkv, g, q_block, d))
+        m = torch.full((b, hkv, g, q_block), -torch.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, q_block), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((b, hkv, g, q_block, d), dtype=torch.float32,
+                          device=dev)
         for ki in range(nk):
             s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kr[ki].float())
             if causal:
-                qpos = q_offset + qi * q_block + torch.arange(q_block)
-                kpos = ki * kv_block + torch.arange(kv_block)
+                qpos = q_offset + qi * q_block + torch.arange(
+                    q_block, dtype=torch.int64, device=dev)
+                kpos = ki * kv_block + torch.arange(
+                    kv_block, dtype=torch.int64, device=dev)
                 s = torch.where(qpos[:, None] >= kpos[None, :], s, -torch.inf)
             m_new = torch.maximum(m, s.amax(-1))
             # guard fully-masked rows (m_new == -inf)
@@ -312,12 +339,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns y [B,S,H,P] and final state [B,H,P,N].
 
     On CUDA tensors: kernel F (`_ssd_on_card`), which raises where it
-    cannot compute the same function. On CPU tensors: the reference's
-    chunked form, `ssd_chunked_plain`.
+    cannot compute the same function. On CPU and `meta` tensors: the
+    reference's chunked form, `ssd_chunked_plain`.
     """
     if x.device.type == "cuda":
         return _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state)
-    if x.device.type != "cpu":
+    if x.device.type not in PLAIN_DEVICES:
         raise ValueError(f"ssd_chunked: unsupported device {x.device}")
     return ssd_chunked_plain(x, dt, A, B_in, C_in, D_res, chunk, init_state)
 

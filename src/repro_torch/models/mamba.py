@@ -38,6 +38,11 @@ def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
     }
 
 
+def param_specs(cfg, dims: Dims) -> dict:
+    return {"embed": ("vocab", "fsdp"),
+            "layers": B.stack_specs(B.mamba_specs()), "final_ln": (None,)}
+
+
 def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
             positions=None, mode: str = "train"):
     """Full-sequence forward. Returns (h_final, states_or_None): in
@@ -79,6 +84,10 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
     one = B.mamba_state_shapes(dims, batch, device)
     return {k: torch.zeros((cfg.n_layers,) + tuple(z.shape), dtype=z.dtype,
                            device=device) for k, z in one.items()}
+
+
+def decode_state_specs(cfg, dims: Dims) -> dict:
+    return B.mamba_decode_state_specs()
 
 
 def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,

@@ -92,6 +92,19 @@ def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
     return params
 
 
+def param_specs(cfg, dims: Dims) -> dict:
+    lp = {"attn": B.attn_specs(dims)}
+    if cfg.is_moe:
+        lp["moe"] = B.moe_specs(dims)
+    else:
+        lp["mlp"] = B.mlp_specs()
+    specs = {"embed": ("vocab", "fsdp"), "layers": B.stack_specs(lp),
+             "final_ln": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "vocab")
+    return specs
+
+
 def _head_matrix(params, dims):
     if "lm_head" in params:
         return params["lm_head"]
@@ -162,6 +175,11 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
     shape = (cfg.n_layers, batch, kv_len, dims.n_kv, att.head_dim)
     return {"k": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=dims.compute_dtype, device=device)}
+
+
+def decode_state_specs(cfg, dims: Dims) -> dict:
+    kv = (None, "batch", "pages", None, None)
+    return {"k": kv, "v": kv}
 
 
 def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,

@@ -1,0 +1,39 @@
+"""Good: the plain version on CPU tensors only, the kernel (or a raise)
+otherwise; a `try` around a launch re-raises (CU503)."""
+import torch
+
+LAUNCHES = 0
+
+
+def flash_attention_torch(q, k, v):
+    return torch.softmax(q @ k.transpose(1, 2), -1) @ v
+
+
+def flash_attention(q, k, v):
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v)
+    return _launch(q, k, v)
+
+
+def flash_attention_ragged(q, k, v):
+    if q.device.type == "cpu":
+        out = flash_attention_torch(q, k, v)
+    else:
+        out = _launch(q, k, v)
+    return out[:, :q.shape[1]]
+
+
+def _launch(q, k, v):
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out = torch.empty_like(q)
+    try:
+        _build.launch("flash_attention_f32_launch", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      q.shape[0], q.shape[1], 128, 0)
+    except RuntimeError as exc:
+        raise RuntimeError(f"kernel E failed at {tuple(q.shape)}") from exc
+    LAUNCHES += 1
+    return out

@@ -318,22 +318,32 @@ def test_ssd_operations_count_the_lower_triangle(s, chunk):
 
 
 # ----------------------------------------------------------------- wrappers
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device: what a wrapper sees of a
+    device it has no route for (`meta` takes the plain version)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*shape):
+    return torch.zeros(*shape).as_subclass(_Elsewhere)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
-    """Nothing falls back: a device that is neither the CPU nor CUDA, a
-    wrong dtype or a non-contiguous tensor raises."""
-    meta = torch.empty(2, 8, 2, 16, device="meta")
+    """Nothing falls back: a device that is neither the CPU, meta nor
+    CUDA, a wrong dtype or a non-contiguous tensor raises."""
     with pytest.raises(ValueError, match="unsupported device"):
-        tkq.kv_quant(meta)
+        tkq.kv_quant(_elsewhere(2, 8, 2, 16))
     with pytest.raises(TypeError, match="dtype"):
         tkq.kv_quant(torch.zeros(2, 8, 2, 16, dtype=torch.int32))
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(*[torch.zeros(1, 16, 64).transpose(1, 2)] * 3)
-    x = torch.zeros(1, 64, 2, 4, device="meta")
-    dt = torch.zeros(1, 64, 2, device="meta")
-    bc = torch.zeros(1, 64, 8, device="meta")
+    x, dt, bc = _elsewhere(1, 64, 2, 4), _elsewhere(1, 64, 2), _elsewhere(
+        1, 64, 8)
     with pytest.raises(ValueError, match="unsupported device"):
-        tssd.mamba2_ssd(x, dt, torch.zeros(2, device="meta"), bc, bc,
-                        chunk=16)
+        tssd.mamba2_ssd(x, dt, _elsewhere(2), bc, bc, chunk=16)
     j, tt = _paged_inputs(1, 4, 2, 16, 8, 2, seed=0)
     _, tq = _quantized(j, tt)
     with pytest.raises(TypeError, match="page_table"):

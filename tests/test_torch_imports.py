@@ -1,8 +1,8 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
 scripts (`benchmarks_torch/*.py`, `examples/dram_sweep_torch.py`,
 `examples/serve_refresh_torch.py`, `examples/quickstart_torch.py`,
-`tools/check_commands_torch.py`) import neither `jax` nor anything of
-the JAX package `repro`."""
+`tools/check_commands_torch.py`, `tools/check_contract_torch.py`) import
+neither `jax` nor anything of the JAX package `repro`."""
 import pathlib
 import pkgutil
 import re
@@ -18,7 +18,8 @@ PORT_FILES = sorted((SRC / "repro_torch").rglob("*.py")) + sorted(
     ROOT / "chip_smoke.py", ROOT / "examples" / "dram_sweep_torch.py",
     ROOT / "examples" / "serve_refresh_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "tools" / "check_commands_torch.py"]
+    ROOT / "tools" / "check_commands_torch.py",
+    ROOT / "tools" / "check_contract_torch.py"]
 
 #: an import statement that names jax or the JAX package (not
 #: `repro_torch`), at any indentation
@@ -67,7 +68,10 @@ def test_port_has_the_expected_modules():
               "repro_torch.train.step", "repro_torch.train.trainer",
               "repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.checkpoint", "repro_torch.checkpoint.engine",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.analysis",
+              "repro_torch.analysis.passes.cuda_lint",
+              "repro_torch.parallel.op_analysis",
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert m in mods, m
 
 
@@ -94,9 +98,10 @@ SCRIPTS = ("benchmarks_torch/fig_refresh.py",
            "benchmarks_torch/bench_framework.py", "benchmarks_torch/run.py",
            "benchmarks_torch/train_layout.py",
            "benchmarks_torch/train_profile.py",
+           "benchmarks_torch/roofline_report.py",
            "examples/dram_sweep_torch.py", "examples/serve_refresh_torch.py",
            "examples/quickstart_torch.py",
-           "tools/check_commands_torch.py")
+           "tools/check_commands_torch.py", "tools/check_contract_torch.py")
 
 
 def test_importing_the_port_scripts_pulls_in_neither_jax_nor_repro():
