@@ -161,6 +161,14 @@ and prints one JSON object a line:
               checkpoint round trip of a CUDA train state with bf16
               moments; `python -m repro_torch.launch.train --reduced
               --steps 12 --device cuda --ckpt-dir ...` exiting 0.
+              Between the two, the sharded step (path
+              `sharded_train_step`): the qwen2-0.5b accum-1 case through
+              the multi-card API on a world of one card (an NCCL group,
+              `make_host_mesh`, `to_shardings`, DTensor state and batch,
+              `sharding_context` with every `shd` active, E through
+              `local_map`), its loss, gradients, m and params held
+              against the unsharded run, E 48 launches a step as
+              unsharded; the group is destroyed before the next path.
  12. dry run  the one-card dry run held on the card (path `dryrun`), for
               qwen2-0.5b and mamba2-130m at `model_train_step`'s 2 x 512,
               f32: `launch.specs.state_shapes_and_specs`' `meta` leaves
@@ -179,7 +187,7 @@ and prints one JSON object a line:
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-twenty paths and read just after it, and reported per path; a path that
+twenty-one paths and read just after it, and reported per path; a path that
 did not launch its kernels fails the run. Afterwards each kernel is timed
 at the shape its full-width path gives it (CUDA events) beside its plain
 version and its bound (E's f32 bound and F's are the lesser of the CUDA
@@ -2290,10 +2298,13 @@ def model_train_path(torch, np):
             raise AssertionError(f"train step {label}: non-finite leaves "
                                  f"{nonfinite}")
         ms = time_cuda(torch, lambda i: step(state, batch), 3)
-        runs[label] = dict(cfg=cfg, dims=dims, accum=accum, state=state,
-                           batch=batch, loss=loss, grads=grads,
+        runs[label] = dict(cfg=cfg, dims=dims, ocfg=ocfg, accum=accum,
+                           state=state, batch=batch, loss=loss, grads=grads,
                            step_loss=metrics["loss"], n_grad=n_grad,
                            n_step=n_step)
+        if (name, accum) == SHARDED_CASE:      # held by sharded_train_step
+            runs[label]["new"] = {k: new_state[k] for k in ("params",)}
+            runs[label]["new"]["m"] = new_state["opt"]["m"]
         report[label] = dict(
             model=name, accum=accum, batch=[TRAIN_B, TRAIN_S],
             layers=cfg.n_layers, d_model=cfg.d_model,
@@ -2383,6 +2394,136 @@ def check_model_train(torch, run):
                 raise AssertionError(f"{label}: no finite gradient reaches "
                                      f"{path} through the kernel")
     return errs
+
+
+#: `model_train_step`'s case that `sharded_train_step` runs sharded
+SHARDED_CASE = (MODEL_ARCH, 1)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def param_bar(torch, m, p, lr, rel=MODEL_REL):
+    """The bar on a param after a first AdamW step whose gradient
+    x = m / (1 - b1) is held at `rel`: the step moves an element by
+    lr·x/(|x| + eps), so a difference d = `rel`·max|x| in x moves it by
+    up to lr·min(2, d·eps/(max(|x| - d, 0) + eps)²) (nothing where |x| is
+    well above d, up to 2·lr at roundoff level), plus `rel` of the
+    leaf's largest |p|."""
+    x = m.float().abs() / 0.1
+    d = rel * float(x.max())
+    eps = 1e-8
+    move = torch.clamp_max(d * eps / (torch.clamp_min(x - d, 0.0) + eps) ** 2,
+                           2.0)
+    return lr * move + rel * float(p.float().abs().max())
+
+
+def sharded_train_path(torch, np, train_run):
+    """`model_train_step`'s qwen2-0.5b case (2 x 512, accum 1, f32)
+    through the whole sharded API on a world of one card: an NCCL
+    process group at tcp://127.0.0.1:<free port>, `make_host_mesh`,
+    `launch.specs.to_shardings` of the train specs, the state and batch
+    distributed as DTensors, `sharding_context` active (every `shd`, E
+    through `local_map`), then `make_grad_fn` and one `make_train_step`
+    step. Held against that case's unsharded run: the loss, every
+    gradient leaf and m after the step at `MODEL_REL`, params after the
+    step within `param_bar`; E 2 a layer in each call, as unsharded;
+    every gradient in its param's placements. The group is destroyed at
+    the end, and the card is left with no group."""
+    import torch.distributed as dist
+    from repro_torch.common.treeutil import flat_paths, tree_leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import (LOGICAL_RULES_SINGLE_POD,
+                                               distribute, full,
+                                               sharding_context)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import make_grad_fn
+    r = train_run["%s_accum%d" % SHARDED_CASE]
+    cfg, dims, ocfg = r["cfg"], r["dims"], r["ocfg"]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    errs, placements = {}, {}
+    try:
+        mesh = make_host_mesh(1, device="cuda")
+        t_init = time.perf_counter() - t0
+        with sharding_context(mesh, LOGICAL_RULES_SINGLE_POD, set()):
+            _, specs = SP.state_shapes_and_specs(cfg, dims, "train", None)
+            state = distribute(r["state"], SP.to_shardings(mesh, specs))
+            batch = distribute(r["batch"], SP.to_shardings(
+                mesh, SP.batch_spec_axes(cfg, r["batch"])))
+            grads_of = make_grad_fn(cfg, dims)
+            (loss, _, grads), n_grad = kernel_launches(
+                lambda: grads_of(state["params"], batch))
+            step = make_train_step(cfg, dims, ocfg, device="cuda")
+            (new, metrics), n_step = kernel_launches(
+                lambda: step(state, batch))
+            ms = time_cuda(torch, lambda i: step(state, batch), 3)
+            want = 2 * cfg.n_layers
+            for what, n in (("grads", n_grad), ("step", n_step)):
+                if n["flash_attention"] != want:
+                    raise AssertionError(
+                        f"sharded {what}: {n['flash_attention']} E "
+                        f"launches, not {want} as unsharded")
+            errs["loss"] = held(torch, full(loss), r["loss"], "sharded loss")
+            errs["step_loss"] = held(torch, full(metrics["loss"]),
+                                     r["step_loss"], "sharded step loss")
+            got = dict(zip(flat_paths(grads), tree_leaves(grads)))
+            params = dict(zip(flat_paths(state["params"]),
+                              tree_leaves(state["params"])))
+            for path, w in zip(flat_paths(r["grads"]),
+                               tree_leaves(r["grads"])):
+                g = got[path]
+                if list(g.placements) != list(params[path].placements):
+                    raise AssertionError(f"sharded gradient {path}: "
+                                         f"placements {g.placements}, "
+                                         f"param {params[path].placements}")
+                placements[path] = [str(x) for x in g.placements]
+                errs[f"grad/{path}"] = held(torch, full(g), w,
+                                            f"sharded gradient {path}")
+            new_m = dict(zip(flat_paths(new["opt"]["m"]),
+                             tree_leaves(new["opt"]["m"])))
+            for path, w in zip(flat_paths(r["new"]["m"]),
+                               tree_leaves(r["new"]["m"])):
+                errs[f"m/{path}"] = held(torch, full(new_m[path]), w,
+                                         f"sharded m {path}")
+            new_p = dict(zip(flat_paths(new["params"]),
+                             tree_leaves(new["params"])))
+            lr = float(full(metrics["lr"]))
+            for path, w, m in zip(flat_paths(r["new"]["params"]),
+                                  tree_leaves(r["new"]["params"]),
+                                  tree_leaves(r["new"]["m"])):
+                err = (full(new_p[path]).float() - w.float()).abs()
+                bar = param_bar(torch, m, w, lr)
+                if not bool((err <= bar).all()):
+                    raise AssertionError(f"sharded param {path}: "
+                                         f"{float((err - bar).max())} over "
+                                         f"its bar")
+                errs[f"param/{path}"] = float(err.max())
+            mesh_shape = list(mesh.shape)
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized() or torch.cuda.device_count() < 1:
+        raise AssertionError("a process group outlived sharded_train_step")
+    return errs, dict(
+        phase="sharded_train_step", model=SHARDED_CASE[0],
+        batch=[TRAIN_B, TRAIN_S], accum=1, dtype="float32",
+        world=1, backend="nccl", mesh=dict(zip(("data", "model"),
+                                               mesh_shape)),
+        launches_in_grads=n_grad, launches_a_step=n_step,
+        unsharded_launches_a_step=r["n_step"], step_ms=ms,
+        group_init_s=round(t_init, 3), loss=float(full(loss)),
+        grad_placements_sample={k: placements[k] for k in list(placements)[:4]},
+        tolerance=f"MODEL_REL={MODEL_REL} of the unsharded leaf's largest "
+                  f"magnitude (loss, gradients, m); params within "
+                  f"param_bar")
 
 
 def trainer_ckpt_path(torch, np):
@@ -2867,6 +3008,12 @@ def main() -> int:
     trs["max_abs_err"] = check_model_train(torch, train_run)
     trs["seconds"] = round(time.perf_counter() - t_train, 3)
     emit(dict(trs, launches=paths["model_train_step"]))
+    t_shard = time.perf_counter()
+    shard_errs, shs = drive("sharded_train_step", "flash_attention",
+                            sharded_train_path, torch, np, train_run)
+    shs["max_abs_err"] = max(shard_errs.values())
+    shs["seconds"] = round(time.perf_counter() - t_shard, 3)
+    emit(dict(shs, launches=paths["sharded_train_step"]))
     del train_run
     torch.cuda.empty_cache()
     t_ckpt = time.perf_counter()

@@ -3,8 +3,9 @@
 
 Epoch model (consistency): every `interval` steps a checkpoint *epoch*
 snapshots the full train state to host memory (each leaf copied off the
-card). The disk flushes of the N banks of leaves are then *scheduled*
-across the following steps' write windows by the DARP scheduler
+card; a DTensor leaf as its `full_tensor()`, so a sharded state writes
+the bytes of the unsharded one). The disk flushes of the N banks of
+leaves are then *scheduled* across the following steps' write windows by the DARP scheduler
 (`core/scheduler/darp.py`): out of order, budget-bounded (a bank's flush
 may be postponed at most `budget` sub-windows; preemption pulls
 everything in at once, the paper's pull-in path). A checkpoint becomes
@@ -23,8 +24,6 @@ Departures from the reference, all deliberate:
     it with `astype` (`repro/checkpoint/engine.py:243`), which numpy
     refuses for `|V2`, so the reference cannot restore bf16 leaves
     (`OptConfig(moment_dtype="bfloat16")`); the port can.
-  * `restore` takes no `shardings`: on one card each leaf goes to the
-    device of the template's leaf.
   * `flush_all_now` with no epoch snapshotted yet flushes nothing. The
     reference's flushes a bank of `None` and raises `TypeError`
     (`repro/checkpoint/engine.py:132,154`): a trainer resumed from a
@@ -45,11 +44,13 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
-from repro_torch.common.treeutil import flat_paths, tree_flatten, \
-    tree_unflatten
+from repro_torch.common.treeutil import flat_paths, flatten_up_to, \
+    tree_flatten, tree_unflatten
 from repro_torch.core.policy import RefreshPolicy
 from repro_torch.core.scheduler import DarpScheduler, SchedulerPolicy
+from repro_torch.parallel.sharding import full
 
 
 @dataclass(frozen=True)
@@ -69,8 +70,9 @@ def _crc(arr: np.ndarray) -> int:
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A leaf as the numpy array the reference's `jax.device_get` gives:
     bfloat16 as raw two-byte `|V2` (bit for bit), every other dtype as
-    itself."""
-    t = t.detach().to("cpu", copy=True)
+    itself. A DTensor leaf is gathered whole first (a collective: every
+    rank of its mesh calls it)."""
+    t = full(t.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -251,10 +253,14 @@ class CheckpointEngine:
             f.result()
         self._pending = []
 
-    def restore(self, template: dict) -> Optional[tuple]:
+    def restore(self, template: dict, shardings=None) -> Optional[tuple]:
         """Restore the newest complete epoch into `template`'s structure.
         Returns (state, step) or None. Verifies checksums; each leaf takes
-        the dtype and device of the template's leaf."""
+        the dtype and device of the template's leaf, and is re-sharded
+        onto `shardings` (a tree like the template's of
+        `parallel.NamedSharding` or None, as `launch.specs.to_shardings`
+        builds it): a leaf with a sharding becomes a DTensor of its
+        placements, distributed from the stored array."""
         step = latest_step(self.cfg.directory)
         if step is None:
             return None
@@ -275,8 +281,18 @@ class CheckpointEngine:
         assert all(x is not None for x in leaves), "missing leaves"
         t_leaves, treedef = tree_flatten(template)
         assert len(t_leaves) == n, "template/checkpoint structure mismatch"
-        out = [from_host(arr, tmpl) for arr, tmpl in zip(leaves, t_leaves)]
+        shard_leaves = (flatten_up_to(treedef, shardings)
+                        if shardings is not None else [None] * n)
+        out = [_placed(from_host(arr, tmpl), shd_)
+               for arr, tmpl, shd_ in zip(leaves, t_leaves, shard_leaves)]
         return tree_unflatten(treedef, out), step
+
+
+def _placed(t: torch.Tensor, sharding) -> torch.Tensor:
+    """`t` distributed onto `sharding` (None: as it is)."""
+    if sharding is None:
+        return t
+    return distribute_tensor(t, sharding.mesh, list(sharding.placements))
 
 
 def latest_step(directory: str) -> Optional[int]:

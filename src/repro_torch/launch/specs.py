@@ -6,9 +6,8 @@ real constructors on `device="meta"` (the counterpart of
 `jax.eval_shape`; the port's `init` draws from a CPU `torch.Generator`,
 which draws nothing on `meta`), and inputs are `meta` tensors. The specs
 are the reference's logical-axis trees (tuples, one axis name or None a
-dimension). The reference's `to_shardings` maps them onto a TPU mesh; one
-card has nothing to map, so it has no counterpart here (`ROADMAP.md`
-queues the multi-card slice).
+dimension); `to_shardings` maps them onto a `DeviceMesh`
+(`launch/mesh.py`), as the reference's maps them onto a TPU mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ from repro_torch.common.treeutil import flatten_up_to, tree_flatten
 from repro_torch.models.api import get_model
 from repro_torch.models.dims import Dims
 from repro_torch.optim import OptConfig, init_opt
+from repro_torch.parallel.sharding import named_sharding_on
 
 META = torch.device("meta")
 
@@ -109,10 +109,12 @@ def _v_specs(pspecs, params, v):
 
 
 def state_shapes_and_specs(cfg: ArchConfig, dims: Dims, kind: str,
-                           shape: ShapeConfig):
+                           shape: ShapeConfig, *, opt_cfg: OptConfig = None):
     """Returns (tree of `meta` tensors, tree of logical-axis tuples) for
     the non-batch argument of the step function: {"params", "opt"} for
-    train, the params for prefill, {"params", "state"} for decode."""
+    train, the params for prefill, {"params", "state"} for decode. The
+    train state's optimizer is `opt_cfg`, by default the arch's
+    (`opt_config_for`)."""
     mod = get_model(cfg)
 
     def params():
@@ -120,7 +122,7 @@ def state_shapes_and_specs(cfg: ArchConfig, dims: Dims, kind: str,
 
     if kind == "train":
         p = params()
-        opt = init_opt(p, opt_config_for(cfg))
+        opt = init_opt(p, opt_cfg or opt_config_for(cfg))
         pspecs = mod.param_specs(cfg, dims)
         specs = {"params": pspecs,
                  "opt": {"m": pspecs, "v": _v_specs(pspecs, p, opt["v"]),
@@ -135,3 +137,18 @@ def state_shapes_and_specs(cfg: ArchConfig, dims: Dims, kind: str,
                 {"params": mod.param_specs(cfg, dims),
                  "state": mod.decode_state_specs(cfg, dims)})
     raise ValueError(kind)
+
+
+def to_shardings(mesh, logical_tree):
+    """Logical-axis tuples -> `NamedSharding`s on `mesh` (None-safe): the
+    reference's tree with a (mesh, placements) leaf where it has a
+    `jax.sharding.NamedSharding`. Leaves are resolved in the port's
+    `tree_flatten` order (JAX's sorted keys); the tree keeps its keys'
+    order."""
+    if isinstance(logical_tree, dict):
+        done = {k: to_shardings(mesh, logical_tree[k])
+                for k in sorted(logical_tree)}
+        return {k: done[k] for k in logical_tree}
+    if logical_tree is None:
+        return None
+    return named_sharding_on(mesh, tuple(logical_tree))

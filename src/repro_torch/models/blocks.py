@@ -11,11 +11,13 @@ Conventions:
     model is numerically identical to the logical one;
   * `mode` is one of 'train' | 'prefill' | 'decode'.
 
-The reference's sharding annotations and its `shard_map` MoE branch have
-no counterpart on one card: `apply_moe` is the reference's no-mesh path.
 The `*_specs` functions return the reference's logical-axis names of each
-block's params (tuples, one name or None an axis); the dry run and the
-tests read them, and nothing maps them onto devices yet.
+block's params (tuples, one name or None an axis). Under a sharding
+context (`repro_torch.parallel`) the params are DTensors laid out by
+those specs, the activations are constrained with `shd` at the
+reference's sites, and `apply_moe` takes its mesh branch, the
+counterpart of the reference's `shard_map` body; with no context `shd`
+is the identity and `apply_moe` the reference's no-mesh path.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.dims import Dims
+from repro_torch.parallel import local_ops
+from repro_torch.parallel.sharding import (current_mesh, logical_to_spec,
+                                           mesh_axes, mesh_axis_size,
+                                           replicated, shd,
+                                           spec_to_placements)
 
 
 def _norm(gen: torch.Generator, shape, dtype, device, scale=0.02):
@@ -96,6 +103,10 @@ def _project_qkv(p, x, dims: Dims, sin, cos, rope: bool):
     if rope:
         q = L.apply_rope(q, sin, cos)
         k = L.apply_rope(k, sin, cos)
+    kv_ax = "kv_heads" if dims.kv_sharded else None
+    q = shd(q, "batch", None, "heads", None)
+    k = shd(k, "batch", None, kv_ax, None)
+    v = shd(v, "batch", None, kv_ax, None)
     return q, k, v
 
 
@@ -113,10 +124,8 @@ def apply_attn(p: dict, h: torch.Tensor, dims: Dims, *, sin, cos,
     if mode == "decode":
         q, k_new, v_new = _project_qkv(p, x, dims, sin, cos, rope)
         k_cache, v_cache = cache
-        k_cache = k_cache.clone()
-        v_cache = v_cache.clone()
-        k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
-        v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+        k_cache = L.cache_update(k_cache, k_new, pos)
+        v_cache = L.cache_update(v_cache, v_new, pos)
         new_cache = (k_cache, v_cache)
         out = L.decode_attention(q, k_cache, v_cache, pos + 1, dims.q_group)
     else:
@@ -127,6 +136,8 @@ def apply_attn(p: dict, h: torch.Tensor, dims: Dims, *, sin, cos,
         out = L.chunked_attention(q, ke, ve, causal=causal)
         new_cache = (k, v)
     y = L.eins("bshk,hkd->bsd", out, p["wo"])
+    if mode != "decode":
+        y = shd(y, "batch", "seq", None)
     return h + y, new_cache
 
 
@@ -138,7 +149,9 @@ def cross_kv(p: dict, memory: torch.Tensor, dims: Dims):
     if "bk" in p:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return k, v
+    kv_ax = "kv_heads" if dims.kv_sharded else None
+    return shd(k, "batch", None, kv_ax, None), shd(v, "batch", None, kv_ax,
+                                                   None)
 
 
 def apply_cross_attn(p: dict, h: torch.Tensor, dims: Dims, *, kv: tuple,
@@ -150,13 +163,17 @@ def apply_cross_attn(p: dict, h: torch.Tensor, dims: Dims, *, kv: tuple,
     q = L.eins("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
+    q = shd(q, "batch", None, "heads", None)
     k, v = kv
     if mode == "decode":
         out = L.decode_attention(q, k, v, k.shape[1], dims.q_group)
     else:
         ke, ve = L._expand_kv(k, dims.q_group), L._expand_kv(v, dims.q_group)
         out = L.chunked_attention(q, ke, ve, causal=False)
-    return h + L.eins("bshk,hkd->bsd", out, p["wo"])
+    y = L.eins("bshk,hkd->bsd", out, p["wo"])
+    if mode != "decode":
+        y = shd(y, "batch", "seq", None)
+    return h + y
 
 
 # ==================================================================== MLP
@@ -177,9 +194,13 @@ def mlp_specs() -> dict:
             "wd": ("ff", "fsdp")}
 
 
-def apply_mlp(p: dict, h: torch.Tensor, dims: Dims) -> torch.Tensor:
+def apply_mlp(p: dict, h: torch.Tensor, dims: Dims,
+              seq_shard: bool = True) -> torch.Tensor:
     x = L.rmsnorm(h, p["ln"], dims.cfg.norm_eps)
-    return h + L.gated_mlp(x, p["wi"], p["wg"], p["wd"])
+    y = L.gated_mlp(x, p["wi"], p["wg"], p["wd"])
+    if seq_shard:
+        y = shd(y, "batch", "seq", None)
+    return h + y
 
 
 # ==================================================================== MoE
@@ -237,20 +258,78 @@ def _moe_local_body(x, wr, we_i, we_g, we_o, *, moe_cfg, expert_offset,
     return y.reshape(b, s, d), aux, dropped
 
 
-def apply_moe(p: dict, h: torch.Tensor, dims: Dims):
-    """MoE block (the reference's no-mesh path). Returns (h', aux_loss,
-    dropped_frac)."""
+def apply_moe(p: dict, h: torch.Tensor, dims: Dims, seq_shard: bool = True):
+    """Expert-parallel MoE block. Returns (h', aux_loss, dropped_frac).
+
+    With a mesh (`_moe_on_mesh`): tokens stay on their data shard,
+    experts are sharded over 'model'; the cross-shard traffic is one sum
+    of the combined output over 'model' plus the FSDP all-gather of the
+    expert weights over 'data', as the reference's `shard_map` body.
+    """
     cfg = dims.cfg
     m = cfg.moe
     x = L.rmsnorm(h, p["ln"], cfg.norm_eps)
-    cap = _moe_capacity(x.shape[0] * x.shape[1], m)
-    y, aux, dropped = _moe_local_body(
-        x, p["router"], p["we_i"], p["we_g"], p["we_o"],
-        moe_cfg=m, expert_offset=0, capacity=cap)
+    mesh = current_mesh()
+    if mesh is None:
+        cap = _moe_capacity(x.shape[0] * x.shape[1], m)
+        y, aux, dropped = _moe_local_body(
+            x, p["router"], p["we_i"], p["we_g"], p["we_o"],
+            moe_cfg=m, expert_offset=0, capacity=cap)
+    else:
+        y, aux, dropped = _moe_on_mesh(p, x, m, mesh)
     if m.shared_expert_ff:
         sh = p["shared"]
         y = y + L.gated_mlp(x, sh["wi"], sh["wg"], sh["wd"])
+    if seq_shard:
+        y = shd(y, "batch", "seq", None)
     return h + y, aux * m.router_aux_weight, dropped
+
+
+def _moe_on_mesh(p: dict, x, m, mesh):
+    """The reference's `shard_map` MoE body, one local call a rank
+    (`parallel.local_ops.run_local`).
+
+    Each rank runs `_moe_local_body` on its data shard's tokens (all of
+    them, gathered over 'model') against its 'model' shard's experts,
+    all-gathered over 'data' (FSDP). Capacity is the reference's: that of
+    one data shard's tokens. The outputs leave as `Partial` sums: y over
+    'model' (each rank holds its experts' share), aux and dropped over
+    every mesh axis after a division by the mesh size over 'model' and
+    the batch ways over 'data', so that resolving them gives the
+    reference's psum and pmean. The gradients of inputs that each rank
+    reads whole (the router, the tokens over 'model', the weights over
+    'data') leave as `Partial` sums for the same reason: each rank's
+    gradient covers only its own tokens or experts.
+    """
+    names = mesh.mesh_dim_names
+    ep = mesh_axis_size(mesh, "model")
+    bways = 1
+    for a in mesh_axes("batch"):
+        bways *= mesh_axis_size(mesh, a)
+    cap = _moe_capacity((x.shape[0] // bways) * x.shape[1], m)
+    expert_offset = mesh.get_local_rank("model") * (m.n_experts // ep)
+
+    def over(axes):
+        return [n in axes for n in names]
+
+    tokens = spec_to_placements(names, logical_to_spec(("batch", None, None)))
+    experts = spec_to_placements(names, logical_to_spec(("expert", None,
+                                                         None)))
+    summed = local_ops.summed_where(tokens, over(names))
+    y_pl = local_ops.summed_where(tokens, over(("model",)))
+    w_grad = local_ops.summed_where(experts, over(mesh_axes("fsdp")))
+
+    def body(x_loc, wr, wei, weg, weo):
+        y, aux, dropped = _moe_local_body(
+            x_loc, wr, wei, weg, weo, moe_cfg=m,
+            expert_offset=expert_offset, capacity=cap)
+        return y, aux / (ep * bways), dropped / (ep * bways)
+
+    y, aux, dropped = local_ops.run_local(
+        body, (x, p["router"], p["we_i"], p["we_g"], p["we_o"]),
+        (tokens, local_ops.without(tokens, (0,)), experts, experts, experts),
+        (y_pl, summed, summed), (y_pl, summed, w_grad, w_grad, w_grad))
+    return y, replicated(aux), replicated(dropped)
 
 
 # ================================================================== mamba2
@@ -342,10 +421,12 @@ def apply_mamba(p: dict, h: torch.Tensor, dims: Dims, *,
     s = cfg.ssm
     nh_logical = s.n_heads(cfg.d_model)
     x = L.rmsnorm(h, p["ln"], cfg.norm_eps)
+    x = shd(x, "batch", None, None)
     z, xin_raw, b_raw, c_raw, dt = _mamba_project(p, x, dims)
     xin = _silu_as(L.causal_depthwise_conv(xin_raw, p["conv_x"]))
     b_in = _silu_as(L.causal_depthwise_conv(b_raw, p["conv_B"]))
     c_in = _silu_as(L.causal_depthwise_conv(c_raw, p["conv_C"]))
+    xin = shd(xin, "batch", None, "ff")
     bsz, seq = xin.shape[:2]
     xh = xin.reshape(bsz, seq, dims.ssm_heads, s.head_dim)
     dt = F.softplus(dt.float() + p["dt_bias"])
@@ -354,7 +435,8 @@ def apply_mamba(p: dict, h: torch.Tensor, dims: Dims, *,
     y = y.reshape(bsz, seq, dims.d_inner)
     y = L.gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps,
                         n=nh_logical * s.head_dim)
-    new_h = h + L.eins("bse,ed->bsd", y, p["wo"])
+    out = shd(L.eins("bse,ed->bsd", y, p["wo"]), "batch", "seq", None)
+    new_h = h + out
     if not return_state:
         return new_h, last_state
     w = s.d_conv

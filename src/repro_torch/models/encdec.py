@@ -22,6 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
 from repro_torch.models.transformer import _stack, remat
+from repro_torch.parallel.sharding import place, shd
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
@@ -76,7 +77,7 @@ def _rope(cfg, bsz, seq, device):
 
 def encode(params, cfg, dims: Dims, enc_embeds, mode="train"):
     """Frame embeddings [B,T,D] -> encoder memory [B,T,D]."""
-    h = enc_embeds.to(dims.compute_dtype)
+    h = shd(enc_embeds.to(dims.compute_dtype), "batch", "seq", None)
     sin, cos = _rope(cfg, h.shape[0], h.shape[1], h.device)
 
     def body(h, lp):
@@ -90,7 +91,8 @@ def encode(params, cfg, dims: Dims, enc_embeds, mode="train"):
 
 
 def _decode_stack(params, cfg, dims: Dims, tokens, enc_h, mode):
-    h = params["dec_embed"][tokens.long()].to(dims.compute_dtype)
+    h = L.embed_lookup(params["dec_embed"], tokens).to(dims.compute_dtype)
+    h = shd(h, "batch", "seq", None)
     sin, cos = _rope(cfg, h.shape[0], h.shape[1], h.device)
     collect = mode == "prefill"
     ys = {"k": [], "v": [], "ck": [], "cv": []}
@@ -131,7 +133,7 @@ def prefill(params, batch, cfg, dims: Dims):
         bos = torch.zeros((enc_h.shape[0], 1), dtype=torch.int32,
                           device=enc_h.device)
     h, state = _decode_stack(params, cfg, dims, bos, enc_h, "prefill")
-    logits = LS.logits_for(h[:, -1], params["lm_head"], cfg.vocab_size)
+    logits = LS.logits_for(L.last_position(h), params["lm_head"], cfg.vocab_size)
     return logits, state
 
 
@@ -141,8 +143,10 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
     enc_len = enc_len or kv_len
 
     def z(s):
-        return torch.zeros((cfg.n_layers, batch, s, dims.n_kv, att.head_dim),
-                           dtype=dims.compute_dtype, device=device)
+        return place(torch.zeros((cfg.n_layers, batch, s, dims.n_kv,
+                                  att.head_dim), dtype=dims.compute_dtype,
+                                 device=device),
+                     None, "batch", "pages", None, None)
 
     return {"k": z(kv_len), "v": z(kv_len), "ck": z(enc_len),
             "cv": z(enc_len)}
@@ -157,7 +161,8 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
                 pos=None):
     """One-token decode. token [B]; pos: int, the current length.
     Returns (logits [B,V], new state)."""
-    h = params["dec_embed"][token.long()[:, None]].to(dims.compute_dtype)
+    h = L.embed_lookup(params["dec_embed"],
+                       token[:, None]).to(dims.compute_dtype)
     bsz = h.shape[0]
     att = cfg.attention
     posv = torch.full((bsz, 1), int(pos), dtype=torch.int32, device=h.device)
@@ -172,7 +177,7 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
         h = B.apply_cross_attn(lp["cross"], h, dims,
                                kv=(state["ck"][li], state["cv"][li]),
                                mode="decode")
-        h = B.apply_mlp(lp["mlp"], h, dims)
+        h = B.apply_mlp(lp["mlp"], h, dims, seq_shard=False)
         ks.append(kc)
         vs.append(vc)
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)

@@ -23,6 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
 from repro_torch.models.transformer import _embed_in, _stack, remat
+from repro_torch.parallel.sharding import place, shd
 
 
 def _split(cfg):
@@ -89,6 +90,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     groups, per, tail = _split(cfg)
     h = _embed_in(params, dims, tokens, embeds)
     bsz, seq = h.shape[:2]
+    h = shd(h, "batch", "seq", None)
     sin, cos = _rope(cfg, bsz, seq, h.device)
     collect = mode == "prefill"
     gm, ks, vs, tm = [], [], [], []
@@ -136,7 +138,10 @@ def prefill(params, batch, cfg, dims: Dims):
     """Returns (last-token logits [B,V], decode state as `forward`'s)."""
     h, states = forward(params, cfg, dims, tokens=batch.get("tokens"),
                         embeds=batch.get("embeds"), mode="prefill")
-    logits = LS.logits_for(h[:, -1], params["lm_head"], cfg.vocab_size)
+    logits = LS.logits_for(L.last_position(h), params["lm_head"], cfg.vocab_size)
+    states = dict(states)
+    for key in ("k", "v"):
+        states[key] = shd(states[key], None, "batch", "pages", None, None)
     return logits, states
 
 
@@ -151,9 +156,12 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
                                device=device) for k, z in one.items()}
 
     shape = (groups, batch, kv_len, dims.n_kv, att.head_dim)
-    return {"groups_mamba": stacked(groups, per),
-            "k": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
+    def kv():
+        return place(torch.zeros(shape, dtype=dims.compute_dtype,
+                                 device=device),
+                     None, "batch", "pages", None, None)
+
+    return {"groups_mamba": stacked(groups, per), "k": kv(), "v": kv(),
             "tail_mamba": stacked(tail) if tail else None}
 
 
@@ -173,7 +181,8 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
     if embed is not None:
         h = embed[:, None, :].to(dims.compute_dtype)
     else:
-        h = params["embed"][token.long()[:, None]].to(dims.compute_dtype)
+        h = L.embed_lookup(params["embed"],
+                           token[:, None]).to(dims.compute_dtype)
     bsz = h.shape[0]
     att = cfg.attention
     posv = torch.full((bsz, 1), int(pos), dtype=torch.int32, device=h.device)
@@ -191,7 +200,7 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
                                    mode="decode",
                                    cache=(state["k"][g], state["v"][g]),
                                    pos=int(pos))
-        h = B.apply_mlp(params["shared"]["mlp"], h, dims)
+        h = B.apply_mlp(params["shared"]["mlp"], h, dims, seq_shard=False)
         gm.append(_stack(sts))
         ks.append(kc)
         vs.append(vc)

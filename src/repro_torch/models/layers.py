@@ -4,8 +4,8 @@ capacity dispatch, and the Mamba2 SSD scan.
 
 All functions are pure functions of tensors. Compute happens in the
 inputs' dtype with float32 softmax/norm accumulators, as in the reference.
-The reference's sharding annotations (`shd`) have no counterpart on one
-card and are dropped.
+Activations carry the reference's logical-axis annotations
+(`repro_torch.parallel.shd`), no-ops without a sharding context.
 
 `chunked_attention` is where kernel E enters the model, and
 `ssd_chunked` where kernel F does: on CUDA tensors they launch
@@ -18,7 +18,10 @@ raises. On the card both launches sit inside
 `torch.autograd.Function`s (`kernels.ops`) whose backward is autograd of
 the plain version recomputed from the saved inputs, as the reference's
 `flash_attention_trainable` differentiates its kernel: the kernel runs
-every forward, a gradient passes through it. The other Mamba2 layers
+every forward, a gradient passes through it. On DTensors (a sharding
+context) both run through `local_map` on each rank's local heads
+(`_attention_on_mesh`, `_ssd_on_mesh`): the same function of the local
+shards, kernel or plain by the shards' device. The other Mamba2 layers
 (depthwise conv, the one-token SSD step, the gated norm) are plain torch
 on every device, as they are plain jnp in the reference.
 """
@@ -29,8 +32,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.kernels import ops as _ops
+from repro_torch.parallel import local_ops
+from repro_torch.parallel.sharding import (is_dtensor, logical_to_spec,
+                                           mesh_axes, shd,
+                                           spec_to_placements, unshard)
 
 #: devices whose tensors take the plain route: the CPU, and `meta`, which
 #: computes shapes only and whose values are never read
@@ -49,6 +57,27 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float,
     var = torch.sum(x * x, dim=-1, keepdim=True) / denom
     y = x * torch.rsqrt(var + eps)
     return (y * w.float()).to(dtype)
+
+
+# ----------------------------------------------------------------- embedding
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`table[tokens]`, the reference's `jnp.take(table, tokens, axis=0)`.
+    On a DTensor table, each rank looks its own tokens up in the whole
+    table, gathered over its vocab rows and its d_model columns (DTensor's
+    row-sharded lookup would rely on a masked partial sum, and its index
+    backward is not in every release); the table's gradient is a sum over
+    the tokens' ranks."""
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    ids = (list(tokens.placements) if is_dtensor(tokens)
+           else [Replicate()] * table.device_mesh.ndim)
+    ids = local_ops.without(ids, range(1, tokens.ndim))
+    whole = [Replicate()] * len(ids)
+    (out,) = local_ops.run_local(
+        lambda t, i: (t[i.long()],), (table, tokens), (whole, ids), (ids,),
+        (local_ops.summed_where(whole, [p.is_shard() for p in ids]), ids))
+    return out
 
 
 # ---------------------------------------------------------------------- rope
@@ -98,9 +127,16 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 # ----------------------------------------------------------------- attention
 
 def _expand_kv(k: torch.Tensor, group: int) -> torch.Tensor:
-    """[B,S,Hkv,D] -> [B,S,Hkv*group,D] by repeating each kv head."""
+    """[B,S,Hkv,D] -> [B,S,Hkv*group,D] by repeating each kv head. On a
+    DTensor, each rank repeats its own kv heads: those of its q heads'
+    groups when the kv heads are sharded, all of them when replicated."""
     if group == 1:
         return k
+    if is_dtensor(k):
+        pl = local_ops.without(k.placements, (1, 3))
+        (out,) = local_ops.run_local(lambda x: (_expand_kv(x, group),),
+                                     (k,), (pl,), (pl,))
+        return out
     b, s, hkv, d = k.shape
     k = k[:, :, :, None, :].expand(b, s, hkv, group, d)
     return k.reshape(b, s, hkv * group, d)
@@ -115,12 +151,54 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cannot compute the same function. On CPU tensors, and on `meta`
     tensors (shapes only: the dry run), `chunked_attention_plain`.
     """
+    if is_dtensor(q):
+        return _attention_on_mesh(q, k, v, causal=causal, q_block=q_block,
+                                  kv_block=kv_block, q_offset=q_offset)
     if q.device.type == "cuda":
         return _flash_on_card(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type not in PLAIN_DEVICES:
         raise ValueError(f"chunked_attention: unsupported device {q.device}")
     return chunked_attention_plain(q, k, v, causal=causal, q_block=q_block,
                                    kv_block=kv_block, q_offset=q_offset)
+
+
+def _on_local_shards(fn, args, specs, out_specs, summed=None):
+    """`fn` on each rank's local shards of the DTensors `args`, laid out
+    by the logical axes `specs` (one tuple an argument), its outputs
+    DTensors of `out_specs` (`parallel.local_ops.run_local`). `summed`
+    maps an argument's position to a logical axis: that argument is read
+    whole on the axis' mesh dimensions while each rank works on its own
+    share of them, so its gradient is a `Partial` sum there."""
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    names = mesh.mesh_dim_names
+
+    def placements(axes):
+        return spec_to_placements(names, logical_to_spec(axes))
+
+    ins = [placements(a) for a in specs]
+    grads = list(ins)
+    for i, axis in (summed or {}).items():
+        grads[i] = local_ops.summed_where(
+            ins[i], [n in mesh_axes(axis) for n in names])
+    return local_ops.run_local(fn, args, ins,
+                               [placements(a) for a in out_specs], grads)
+
+
+def _attention_on_mesh(q, k, v, **kw):
+    """`chunked_attention` on DTensors: each rank attends over its batch
+    shard's local heads. K and V come expanded to the q heads (as every
+    caller passes them, GQA's `_expand_kv`), so a rank's slice of them
+    holds the kv heads of its own q heads' groups, whether the kv heads
+    were sharded or replicated."""
+    heads = ("batch", None, "heads", None)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(f"chunked_attention on a mesh takes K/V expanded "
+                         f"to the q heads: {tuple(k.shape)} vs "
+                         f"{tuple(q.shape)}")
+    (out,) = _on_local_shards(
+        lambda a, b, c: (chunked_attention(a, b, c, **kw),), (q, k, v),
+        (heads,) * 3, (heads,))
+    return out
 
 
 def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -176,6 +254,12 @@ def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, hq, d)
 
 
+def last_position(h: torch.Tensor) -> torch.Tensor:
+    """h[:, -1]: [B,S,D] -> [B,D], the sequence gathered first on a
+    DTensor (a select of one position of a sharded dimension)."""
+    return unshard(h, 1)[:, -1]
+
+
 def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
     """`chunked_attention` on the card: kernel E on [B·Hq, S, D], K/V
     expanded to the q heads, through `flash_attention_ragged`, which
@@ -204,14 +288,37 @@ def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
     return out.reshape(b, hq, sq, d).permute(0, 2, 1, 3)
 
 
+def cache_update(cache: torch.Tensor, new: torch.Tensor,
+                 pos: int) -> torch.Tensor:
+    """`cache` [B,Smax,H,D] with position `pos` set to `new` [B,1,H,D], as
+    a new tensor (the reference's `dynamic_update_slice`). A DTensor
+    cache, whose positions may be sharded ('pages'), is written with an
+    elementwise select: a slice assignment would write into a
+    redistributed copy of it."""
+    new = new.to(cache.dtype)
+    if is_dtensor(cache):
+        at = torch.arange(cache.shape[1], device=new.device) == pos
+        return torch.where(at[None, :, None, None], new, cache)
+    cache = cache.clone()
+    cache[:, pos:pos + 1] = new
+    return cache
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len, group: int) -> torch.Tensor:
     """Single-token attention against a dense KV cache, plain torch on
     every device (the reference computes it in jnp too).
 
     q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]. KV is never head-expanded: q is
-    grouped to [B,Hkv,G,D].
+    grouped to [B,Hkv,G,D]. On DTensors each rank attends for its batch
+    shard over every head and the whole cache (gathered over 'pages').
     """
+    if is_dtensor(q):
+        pl = local_ops.without(q.placements, (1, 2, 3))
+        (out,) = local_ops.run_local(
+            lambda a, kc, vc: (decode_attention(a, kc, vc, cur_len, group),),
+            (q, k_cache, v_cache), (pl, pl, pl), (pl,))
+        return out
     b, _, hq, d = q.shape
     smax, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -228,7 +335,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # --------------------------------------------------------------- dense  MLP
 
 def eins(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """einsum with the result in a's dtype (b cast to it)."""
+    """einsum with the result in a's dtype (b cast to it). On a DTensor
+    `a`, one local einsum a rank (`parallel.local_ops.einsum`)."""
+    if is_dtensor(a):
+        return local_ops.einsum(spec, a, b, lambda x, w: torch.einsum(
+            spec, x, w.to(x.dtype)))
     return torch.einsum(spec, a, b.to(a.dtype))
 
 
@@ -238,6 +349,7 @@ def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
     h = eins("bsd,df->bsf", x, wi)
     g = eins("bsd,df->bsf", x, wg)
     h = h * F.silu(g.float()).to(x.dtype)
+    h = shd(h, "batch", None, "ff")
     return eins("bsf,fd->bsd", h, wd)
 
 
@@ -319,7 +431,17 @@ def moe_aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
 # -------------------------------------------------------------------- mamba2
 
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Causal depthwise conv over the sequence. x: [B,S,C]; w: [C,W]."""
+    """Causal depthwise conv over the sequence. x: [B,S,C]; w: [C,W]. On
+    a DTensor, each rank convolves its batch shard's local channels
+    over the whole sequence."""
+    if is_dtensor(x):
+        px = local_ops.without(x.placements, (1,))
+        pw = [Shard(0) if p == Shard(2) else Replicate() for p in px]
+        (out,) = local_ops.run_local(
+            lambda a, b: (causal_depthwise_conv(a, b),), (x, w), (px, pw),
+            (px,), (px, local_ops.summed_where(pw, [p == Shard(0)
+                                                    for p in px])))
+        return out
     width = w.shape[-1]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(width):
@@ -342,11 +464,34 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cannot compute the same function. On CPU and `meta` tensors: the
     reference's chunked form, `ssd_chunked_plain`.
     """
+    if is_dtensor(x):
+        return _ssd_on_mesh(x, dt, A, B_in, C_in, D_res, chunk, init_state)
     if x.device.type == "cuda":
         return _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state)
     if x.device.type not in PLAIN_DEVICES:
         raise ValueError(f"ssd_chunked: unsupported device {x.device}")
     return ssd_chunked_plain(x, dt, A, B_in, C_in, D_res, chunk, init_state)
+
+
+def _ssd_on_mesh(x, dt, A, B_in, C_in, D_res, chunk, init_state):
+    """`ssd_chunked` on DTensors: each rank scans its batch shard's local
+    SSD heads. B and C (one group) are read whole by every head, so
+    their gradient is a sum over the heads' ranks; A's and D's over the
+    batch's."""
+    xs, hs = ("batch", None, "heads", None), ("batch", None, "heads")
+    ns, state = ("batch", None, None), ("batch", "heads", None, None)
+    specs = [xs, hs, ("heads",), ns, ns, ("heads",)]
+    args = [x, dt, A, B_in, C_in, D_res]
+    if init_state is not None:
+        specs.append(state)
+        args.append(init_state)
+
+    def local(*a):
+        return ssd_chunked(*a[:6], chunk, a[6] if len(a) > 6 else None)
+
+    return _on_local_shards(local, tuple(args), tuple(specs), (xs, state),
+                            summed={2: "batch", 3: "heads", 4: "heads",
+                                    5: "batch"})
 
 
 def _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state):
@@ -436,4 +581,7 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     yf = y.float() * F.silu(z.float())
     denom = n if n is not None else yf.shape[-1]
     var = torch.sum(yf * yf, dim=-1, keepdim=True) / denom
+    if is_dtensor(var):                   # a sum over sharded channels
+        var = var.redistribute(var.device_mesh,
+                               local_ops.without(var.placements, ()))
     return (yf * torch.rsqrt(var + eps) * w.float()).to(y.dtype)

@@ -22,6 +22,7 @@ from repro_torch.models.dims import Dims
 from repro_torch.common.treeutil import tree_unbind
 from repro_torch.models.transformer import (_embed_in, _stack, layer_params,
                                             remat)
+from repro_torch.parallel.sharding import shd
 
 
 def init(gen: torch.Generator, cfg, dims: Dims, device="cuda"):
@@ -48,6 +49,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     """Full-sequence forward. Returns (h_final, states_or_None): in
     prefill mode each layer's decode state, stacked over the layers."""
     h = _embed_in(params, dims, tokens, embeds)
+    h = shd(h, "batch", "seq", None)
     collect = mode == "prefill"
     states = []
 
@@ -75,7 +77,7 @@ def prefill(params, batch, cfg, dims: Dims):
     "conv_B", "conv_C"}, each stacked over the layers)."""
     h, states = forward(params, cfg, dims, tokens=batch.get("tokens"),
                         embeds=batch.get("embeds"), mode="prefill")
-    logits = LS.logits_for(h[:, -1], params["embed"].T, cfg.vocab_size)
+    logits = LS.logits_for(L.last_position(h), params["embed"].T, cfg.vocab_size)
     return logits, states
 
 
@@ -97,7 +99,8 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
     if embed is not None:
         h = embed[:, None, :].to(dims.compute_dtype)
     else:
-        h = params["embed"][token.long()[:, None]].to(dims.compute_dtype)
+        h = L.embed_lookup(params["embed"],
+                           token[:, None]).to(dims.compute_dtype)
     states = []
     for li in range(cfg.n_layers):
         h, st = B.apply_mamba_decode(layer_params(params, li), h, dims,

@@ -25,6 +25,8 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import loss as LS
 from repro_torch.models.dims import Dims
+from repro_torch.parallel.sharding import (current_context, place,
+                                           sharding_context, shd)
 
 
 def _rope_inputs(cfg, dims, positions, bsz, seq, device):
@@ -57,10 +59,18 @@ def remat(fn, mode: str, *args):
     backward (`torch.utils.checkpoint`, non-reentrant): the reference's
     `jax.checkpoint(..., nothing_saveable)`. Memory only, values
     unchanged. The layers draw no random numbers, so no RNG state is
-    kept."""
+    kept. The recompute runs under the forward's sharding context: on
+    the card autograd runs it in a thread of its own, which does not see
+    the thread-local context."""
     if mode == "train" and torch.is_grad_enabled():
+        installed = current_context()
+
+        def run(*a):
+            with sharding_context(*installed):
+                return fn(*a)
+
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            run, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 
@@ -114,7 +124,7 @@ def _head_matrix(params, dims):
 def _embed_in(params, dims, tokens=None, embeds=None):
     if embeds is not None:
         return embeds.to(dims.compute_dtype)
-    return params["embed"][tokens.long()].to(dims.compute_dtype)
+    return L.embed_lookup(params["embed"], tokens).to(dims.compute_dtype)
 
 
 def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
@@ -122,6 +132,7 @@ def forward(params, cfg, dims: Dims, *, tokens=None, embeds=None,
     """Full-sequence forward. Returns (h_final, aux_loss, caches_or_None)."""
     h = _embed_in(params, dims, tokens, embeds)
     bsz, seq = h.shape[:2]
+    h = shd(h, "batch", "seq", None)
     sin, cos = _rope_inputs(cfg, dims, positions, bsz, seq, h.device)
     collect_kv = mode == "prefill"
     aux = torch.zeros((), device=h.device)
@@ -165,7 +176,10 @@ def prefill(params, batch, cfg, dims: Dims):
     h, _, caches = forward(params, cfg, dims,
                            tokens=batch.get("tokens"), embeds=batch.get("embeds"),
                            positions=batch.get("positions"), mode="prefill")
-    logits = LS.logits_for(h[:, -1], _head_matrix(params, dims), cfg.vocab_size)
+    logits = LS.logits_for(L.last_position(h), _head_matrix(params, dims),
+                           cfg.vocab_size)
+    caches = {k: shd(c, None, "batch", "pages", None, None)
+              for k, c in caches.items()}
     return logits, caches
 
 
@@ -173,8 +187,12 @@ def init_decode_state(cfg, dims: Dims, batch: int, kv_len: int,
                       device="cuda"):
     att = cfg.attention
     shape = (cfg.n_layers, batch, kv_len, dims.n_kv, att.head_dim)
-    return {"k": torch.zeros(shape, dtype=dims.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=dims.compute_dtype, device=device)}
+    def z():
+        return place(torch.zeros(shape, dtype=dims.compute_dtype,
+                                 device=device),
+                     None, "batch", "pages", None, None)
+
+    return {"k": z(), "v": z()}
 
 
 def decode_state_specs(cfg, dims: Dims) -> dict:
@@ -189,7 +207,8 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
     if embed is not None:
         h = embed[:, None, :].to(dims.compute_dtype)
     else:
-        h = params["embed"][token.long()[:, None]].to(dims.compute_dtype)
+        h = L.embed_lookup(params["embed"],
+                           token[:, None]).to(dims.compute_dtype)
     bsz = h.shape[0]
     att = cfg.attention
     posv = torch.full((bsz, 1), int(pos), dtype=torch.int32, device=h.device)
@@ -205,9 +224,9 @@ def decode_step(params, state, cfg, dims: Dims, *, token=None, embed=None,
                                    cache=(state["k"][li], state["v"][li]),
                                    pos=int(pos))
         if cfg.is_moe:
-            h, _, _ = B.apply_moe(lp["moe"], h, dims)
+            h, _, _ = B.apply_moe(lp["moe"], h, dims, seq_shard=False)
         else:
-            h = B.apply_mlp(lp["mlp"], h, dims)
+            h = B.apply_mlp(lp["mlp"], h, dims, seq_shard=False)
         ks.append(kc)
         vs.append(vc)
     h = L.rmsnorm(h, params["final_ln"], cfg.norm_eps)

@@ -3,8 +3,15 @@ bf16 moments and an optional factored second moment, mirroring
 `repro/optim/adamw.py` operation for operation in float32.
 
 Functional, as the reference: `apply_updates` returns new trees and
-changes none of its arguments. The reference's moments inherit each
-param's sharding; on one card there is nothing to shard.
+changes none of its arguments. As the reference's, the moments inherit
+each param's sharding: on DTensor params (a sharding context) m and v
+are DTensors of the param's placements, and a factored v's row and col
+those of the param with the averaged dimension cut (`launch.specs`'s
+`_v_specs`). A reduction over a sharded dimension gives a `Partial`
+value; each is resolved where it is made: the clip's squared norms to a
+plain scalar on every rank (summed over every shard, as the step count
+and the schedule), the factored means to their moment's placements, and
+every new leaf to its old one's.
 
 What keeps it equal to the reference's arithmetic: the schedule is
 computed on a float32 tensor (not in Python floats, which would round
@@ -19,10 +26,14 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.common.treeutil import (flatten_up_to, tree_flatten,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
+from repro_torch.parallel.sharding import (full, implicit_replication,
+                                           is_dtensor, resolved)
 
 
 @dataclass(frozen=True)
@@ -61,19 +72,47 @@ def _v_factored(p) -> bool:
     return p.ndim >= 2
 
 
+def _cut(placements, ndim: int, dim: int) -> list:
+    """The placements of a tensor of rank `ndim` with dimension `dim`
+    removed: a shard of it becomes replicated, later dimensions shift."""
+    dim %= ndim
+    out = []
+    for pl in placements:
+        if isinstance(pl, Shard) and pl.dim == dim:
+            out.append(Replicate())
+        elif isinstance(pl, Shard) and pl.dim > dim:
+            out.append(Shard(pl.dim - 1))
+        else:
+            out.append(pl)
+    return out
+
+
+def _zeros(shape, dtype, like, placements=None):
+    """Zeros of `shape` on `like`'s device, or, for a DTensor `like`, a
+    DTensor on its mesh with `placements` (default `like`'s)."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    return dtensor_zeros(shape, dtype=dtype, device_mesh=like.device_mesh,
+                         placements=list(placements or like.placements))
+
+
 def init_opt(params, cfg: OptConfig):
-    """{"m", "v", "step"}: zero moments on each param's device, `step` an
-    int32 scalar."""
+    """{"m", "v", "step"}: zero moments on each param's device (DTensors
+    of the param's placements for a DTensor param), `step` an int32
+    scalar."""
     mdt = _dtype(cfg.moment_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+        return _zeros(p.shape, mdt, p)
 
     def v_zeros(p):
         if cfg.factored_v and _v_factored(p):
-            f32 = dict(dtype=torch.float32, device=p.device)
-            return {"row": torch.zeros(p.shape[:-1], **f32),
-                    "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+            pl = getattr(p, "placements", None)
+            row = _cut(pl, p.ndim, -1) if pl else None
+            col = _cut(pl, p.ndim, -2) if pl else None
+            return {"row": _zeros(p.shape[:-1], torch.float32, p, row),
+                    "col": _zeros(p.shape[:-2] + p.shape[-1:],
+                                  torch.float32, p, col)}
         return zeros(p)
 
     device = tree_leaves(params)[0].device
@@ -83,18 +122,27 @@ def init_opt(params, cfg: OptConfig):
 
 def apply_updates(params, grads, opt_state, cfg: OptConfig):
     """One AdamW step. Returns (params, opt_state, metrics)."""
+    with implicit_replication():       # the scalars meet DTensor leaves
+        return _apply_updates(params, grads, opt_state, cfg)
+
+
+def _apply_updates(params, grads, opt_state, cfg: OptConfig):
     step = opt_state["step"] + 1
-    lr = lr_at(cfg, step)
-    gsq = sum(torch.sum(torch.square(g.to(torch.float32)))
+    stepv = full(step)               # the scalars are plain on every rank
+    lr = lr_at(cfg, stepv)
+    gsq = sum(full(torch.sum(torch.square(g.to(torch.float32))))
               for g in tree_leaves(grads))
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     mdt = _dtype(cfg.moment_dtype)
     b1, b2 = cfg.b1, cfg.b2
-    stepf = step.to(torch.float32)
+    stepf = stepv.to(torch.float32)
     corr1 = 1 - torch.pow(b1, stepf)
     corr2 = 1 - torch.pow(b2, stepf)
+
+    def like(x, ref):          # `x` in `ref`'s placements (plain: as is)
+        return resolved(x, getattr(ref, "placements", ()))
 
     def upd(p, g, m, v):
         g = g.to(torch.float32) * scale
@@ -102,21 +150,25 @@ def apply_updates(params, grads, opt_state, cfg: OptConfig):
         mh = m32 / corr1
         if isinstance(v, dict):  # factored second moment
             g2 = g * g + 1e-30
-            row = b2 * v["row"] + (1 - b2) * g2.mean(-1)
-            col = b2 * v["col"] + (1 - b2) * g2.mean(-2)
+            row = b2 * v["row"] + (1 - b2) * like(g2.mean(-1), v["row"])
+            col = b2 * v["col"] + (1 - b2) * like(g2.mean(-2), v["col"])
+            row_mean = row.mean(-1)
+            if is_dtensor(row):
+                row_mean = resolved(row_mean,
+                                    _cut(row.placements, row.ndim, -1))
             vh = (row[..., None] * col[..., None, :]
-                  / torch.clamp_min(row.mean(-1)[..., None, None], 1e-30)
+                  / torch.clamp_min(row_mean[..., None, None], 1e-30)
                   ) / corr2
-            new_v = {"row": row, "col": col}
+            new_v = {"row": like(row, v["row"]), "col": like(col, v["col"])}
         else:
             v32 = b2 * v.to(torch.float32) + (1 - b2) * g * g
             vh = v32 / corr2
-            new_v = v32.to(mdt)
+            new_v = like(v32.to(mdt), p)
         delta = mh / (torch.sqrt(vh) + cfg.eps)
         if p.ndim >= 2:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         new_p = p.to(torch.float32) - lr * delta
-        return new_p.to(p.dtype), m32.to(mdt), new_v
+        return like(new_p.to(p.dtype), p), like(m32.to(mdt), p), new_v
 
     flat_p, tdef = tree_flatten(params)
     flat_g = tree_leaves(grads)

@@ -9,6 +9,12 @@ F forward and again in each layer's rematerialized forward.
 
 The reference's step is pure and jit-able; this one is eager. It
 returns a new state and never changes the one it is given.
+
+Sharded, as the reference's under a mesh: called inside
+`parallel.sharding_context` on a state and batch of DTensors
+(`parallel.distribute` with `launch.specs.to_shardings`), the loss
+comes out replicated and every gradient in its param's placements
+(a `Partial` gradient resolved by a reduce-scatter or an all-reduce).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from repro_torch.common.treeutil import (tree_flatten, tree_leaves, tree_map,
 from repro_torch.models.api import get_model
 from repro_torch.models.dims import Dims
 from repro_torch.optim import OptConfig, apply_updates, init_opt
+from repro_torch.parallel.sharding import is_dtensor, replicated, resolved
 
 
 def require_device(device) -> torch.device:
@@ -72,8 +79,10 @@ def make_grad_fn(cfg, dims: Dims, *, accum: int = 1):
         ps = [p.detach().requires_grad_() for p in leaves]
         loss, metrics = mod.train_loss(tree_unflatten(treedef, ps), batch,
                                        cfg, dims)
+        loss = replicated(loss)
         grads = torch.autograd.grad(loss, ps, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else
+                 resolved(g, p.placements) if is_dtensor(g) else g
                  for p, g in zip(ps, grads)]
         return loss.detach(), tree_map(torch.Tensor.detach, metrics), grads
 
@@ -84,8 +93,7 @@ def make_grad_fn(cfg, dims: Dims, *, accum: int = 1):
             return loss, metrics, tree_unflatten(treedef, grads)
         dev = leaves[0].device
         parts = {k: _split(k, v, accum) for k, v in batch.items()}
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                for p in leaves]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(accum):
             loss_i, _, g = one(leaves, treedef,
@@ -109,7 +117,8 @@ def make_train_step(cfg, dims: Dims, opt_cfg: OptConfig, *, accum: int = 1,
     def step(state, batch):
         require_device(dev)
         check_on_device(state, dev, "the train state")
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
+                 for k, v in batch.items()}
         params = state["params"]
         loss, metrics, grads = grads_of(params, batch)
         new_params, new_opt, opt_metrics = apply_updates(

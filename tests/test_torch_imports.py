@@ -71,8 +71,34 @@ def test_port_has_the_expected_modules():
               "repro_torch.launch.train", "repro_torch.analysis",
               "repro_torch.analysis.passes.cuda_lint",
               "repro_torch.parallel.op_analysis",
-              "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
+              "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+              "repro_torch.parallel.sharding", "repro_torch.parallel.local_ops",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
+
+
+@pytest.mark.parametrize("module", ["repro_torch.parallel",
+                                    "repro_torch.parallel.sharding",
+                                    "repro_torch.parallel.local_ops",
+                                    "repro_torch.launch.mesh"])
+def test_multi_card_modules_pull_in_neither_jax_nor_repro(module):
+    """The multi-card slice imports `torch.distributed` only: importing
+    it in a fresh interpreter loads no JAX and builds no process group."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'jaxlib' or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env={"PYTHONPATH": str(SRC), "PATH": ""},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("clean")
 
 
 def test_importing_every_port_module_pulls_in_neither_jax_nor_repro():
