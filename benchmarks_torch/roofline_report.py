@@ -4,12 +4,16 @@
 
     python3 benchmarks_torch/roofline_report.py [RESULTS_DIR]
 
-The reference's `benchmarks/roofline_report.py` for one H100: the memory
-table has the card's fit in place of the TPU pod's collectives (one card
-has none), and the bounds are the published H100 peaks of
+The reference's `benchmarks/roofline_report.py` for H100s: a table of
+memory and collectives a device and a roofline table for each mesh (one
+card, the single pod of 256 ranks, the two pods of 512), and the cells
+ok a mesh. The memory is each device's arguments and outputs and
+whether they fit one 80 GB card (the reference's peak is not known on
+`meta`); the collectives are DTensor's, counted in a fake world; the
+bounds are the published H100 peaks and link rates of
 `repro_torch.parallel.op_analysis`. The bounds are of the models' plain
 route, which the dry run counts on `meta` (its attention materialises
-every score block); they are what a step would cost at the card's peak
+every score block); they are what a step would cost at the cards' peak
 rates, not measurements.
 """
 from __future__ import annotations
@@ -19,7 +23,8 @@ import json
 import os
 import sys
 
-MESH = "h100x1"
+MESHES = {"h100x1": "one H100", "pod16x16": "single pod 16x16, 256 H100s",
+          "pod2x16x16": "multi-pod 2x16x16, 512 H100s"}
 
 
 def load(results_dir: str = "results/dryrun_torch") -> list[dict]:
@@ -30,22 +35,24 @@ def load(results_dir: str = "results/dryrun_torch") -> list[dict]:
     return recs
 
 
-def dryrun_table(recs, mesh=MESH) -> str:
-    rows = ["| arch | shape | arguments GB | outputs GB | fits one card "
-            "| ops | analyze s |",
-            "|---|---|---|---|---|---|---|"]
+def dryrun_table(recs, mesh="h100x1") -> str:
+    rows = ["| arch | shape | arguments GB/dev | outputs GB/dev "
+            "| fits one card | AG | AR | RS | A2A | ops | analyze s |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r["mesh"] != mesh or not r.get("ok"):
             continue
-        m = r["memory"]
+        m, cc = r["memory"], r["ops"]["collective_counts"]
         rows.append(
             f"| {r['arch']} | {r['shape']} | {m['argument_gb']:.2f} | "
             f"{m['output_gb']:.2f} | {'yes' if r['fits_one_card'] else 'no'}"
-            f" | {r['ops']['n_ops']} | {r['analyze_s']} |")
+            f" | {cc.get('all-gather', 0)} | {cc.get('all-reduce', 0)} | "
+            f"{cc.get('reduce-scatter', 0)} | {cc.get('all-to-all', 0)} | "
+            f"{r['ops']['n_ops']} | {r['analyze_s']} |")
     return "\n".join(rows)
 
 
-def roofline_table(recs, mesh=MESH) -> str:
+def roofline_table(recs, mesh="h100x1") -> str:
     rows = ["| arch | shape | compute s | memory s | collective s | dominant "
             "| useful-FLOP ratio | roofline frac |",
             "|---|---|---|---|---|---|---|---|"]
@@ -67,9 +74,16 @@ def failures(recs) -> list[str]:
 
 
 def report(recs) -> str:
-    out = ["## Dry run (one H100, meta)\n", dryrun_table(recs),
-           "\n## Roofline (one H100)\n", roofline_table(recs),
-           f"\n{sum(r['ok'] for r in recs)}/{len(recs)} cells ok"]
+    out = []
+    for mesh, title in MESHES.items():
+        mine = [r for r in recs if r["mesh"] == mesh]
+        if not mine:
+            continue
+        out += [f"## Dry run ({title}, meta)\n", dryrun_table(recs, mesh),
+                f"\n## Roofline ({title})\n", roofline_table(recs, mesh),
+                f"\n{sum(r['ok'] for r in mine)}/{len(mine)} cells ok "
+                f"({mesh})\n"]
+    out.append(f"{sum(r['ok'] for r in recs)}/{len(recs)} cells ok")
     f = failures(recs)
     if f:
         out.append("\nFAILURES:\n" + "\n".join(f))

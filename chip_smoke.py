@@ -178,21 +178,31 @@ and prints one JSON object a line:
               same step on the card with the plain route patched in
               (`plain_route`), and the step through kernels E and F counts
               fewer (a ctypes launch is invisible to a dispatch mode); the
-              step's ms on each route beside the dry run's bound. After
-              the timings, `python -m repro_torch.launch.dryrun` over every
-              shape of one arch a family (`DRYRUN_FAMILY_ARCHS`, one
-              process an arch, all started together), one line a cell,
-              every cell `ok`.
+              step's ms on each route beside the dry run's bound. Then
+              the dry run on the production meshes with this machine's
+              torch (path `dryrun_pods`, no kernel, nothing on the card):
+              qwen2-0.5b's decode_32k and train_4k on one card, on
+              (data=16, model=16) and on (pod=2, data=16, model=16), each
+              production mesh in a fake world of 256 or 512 ranks on
+              `meta`; every record `ok`, train_4k with all-gathers and
+              all-reduces, a device's arguments between the one-card
+              record's over the devices and the one-card record's; one
+              line a cell with its host seconds. After the timings,
+              `python -m repro_torch.launch.dryrun --one-card-only` over
+              every shape of one arch a family (`DRYRUN_FAMILY_ARCHS`,
+              one process an arch, all started together), one line a
+              cell, every cell `ok`.
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
 The seven kernels' launch counters are set to 0 just before each of the
-twenty-one paths and read just after it, and reported per path; a path that
-did not launch its kernels fails the run. Afterwards each kernel is timed
-at the shape its full-width path gives it (CUDA events) beside its plain
-version and its bound (E's f32 bound and F's are the lesser of the CUDA
-cores' float32 rate and three TF32 products at the TF32 tensor-core
-rate, since both run 3xTF32; E beside `scaled_dot_product_attention`, C
+twenty-two paths and read just after it, and reported per path; a path that
+did not launch its kernels fails the run (`dryrun_pods` has none).
+Afterwards each kernel is timed at the shape its full-width path gives
+it (CUDA events) beside its plain version and its bound (E's f32 bound
+and F's are the lesser of the CUDA cores' float32 rate and three TF32
+products at the TF32 tensor-core rate, since both run 3xTF32; E beside
+`scaled_dot_product_attention`, C
 beside `ops.paged_attention_serial` and with q in float32 and in
 bfloat16; D on float32 and on bfloat16 pages); the megakernels are held
 against their plain versions once more at that shape, and also at the small
@@ -2703,40 +2713,95 @@ DRYRUN_FAMILY_ARCHS = (MODEL_ARCH, "llama4-maverick-400b-a17b", SSM_ARCH,
                        HYBRID_ARCH, ENCDEC_ARCH)
 
 
-def dryrun_matrix(archs):
-    """`python -m repro_torch.launch.dryrun --arch A` for each of `archs`,
+def dryrun_runs(runs, phase):
+    """`python -m repro_torch.launch.dryrun ARGS` for each ARGS of `runs`,
     all started together (the cells run on `meta`, on the host's cores),
-    into a temporary directory: one JSON line a cell; a cell that is not
-    `ok`, or a run that does not exit 0, fails."""
+    into a temporary directory: one JSON line a cell (`phase`), and the
+    records; a cell that is not `ok`, or a run that does not exit 0,
+    fails."""
     import glob
     import tempfile
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
         procs = [subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--out", tmp], cwd=HERE, env=env, text=True,
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", tmp], cwd=HERE, env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for arch in archs]
+            for args in runs]
         logs = [p.communicate()[0] for p in procs]
-        for arch, p, log in zip(archs, procs, logs):
+        for args, p, log in zip(runs, procs, logs):
             if p.returncode != 0:
-                raise AssertionError(f"dryrun --arch {arch} exited "
+                raise AssertionError(f"dryrun {' '.join(args)} exited "
                                      f"{p.returncode}:\n{log[-2000:]}")
         for path in sorted(glob.glob(os.path.join(tmp, "*.json"))):
             with open(path) as f:
                 rec = json.load(f)
             if not rec["ok"]:
                 raise AssertionError(f"dryrun cell {rec['arch']} "
-                                     f"{rec['shape']}: {rec.get('error')}")
+                                     f"{rec['shape']} {rec['mesh']}: "
+                                     f"{rec.get('error')}")
             line = {k: rec[k] for k in ("arch", "shape", "mesh", "ok",
-                                        "analyze_s", "fits_one_card",
-                                        "roofline", "roofline_fraction")}
+                                        "devices", "analyze_s",
+                                        "fits_one_card", "roofline",
+                                        "roofline_fraction")}
             line["memory_gb"] = {k: rec["memory"][k] for k in (
                 "argument_gb", "output_gb")}
-            emit(dict(phase="dryrun_cell", **line))
-            out.append(line)
+            if rec["devices"] > 1:
+                line["collective_counts"] = rec["ops"]["collective_counts"]
+                line["wire_bytes_per_dev"] = rec["ops"]["wire_bytes_per_dev"]
+                line["collective_links"] = rec["ops"]["collective_links"]
+            emit(dict(phase=phase, **line))
+            out.append(rec)
     return out
+
+
+def dryrun_matrix(archs):
+    """The one-card dry run of every shape of each of `archs`
+    (`--one-card-only`, one process an arch)."""
+    return dryrun_runs([["--arch", arch, "--one-card-only"]
+                        for arch in archs], "dryrun_cell")
+
+
+#: the production meshes' dry run on this machine's torch (`dryrun_pods`):
+#: the reference's own test cell, decode_32k, and a train cell
+DRYRUN_POD_SHAPES = ("decode_32k", "train_4k")
+
+
+def dryrun_pods_path():
+    """`python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape S`
+    for each S of `DRYRUN_POD_SHAPES`, both started together, on every
+    mesh: one card, and the reference's (data=16, model=16) and (pod=2,
+    data=16, model=16) in fake worlds of 256 and 512 ranks (on `meta`:
+    no device work, and no card set a rank). DTensor's op coverage
+    differs between torch releases, so this is the run that shows that
+    this machine's torch runs them. Every record `ok`; train_4k's with
+    all-gathers and all-reduces; a production record's arguments a
+    device at least the one-card record's over its devices and at most
+    the one-card record's. One line a cell, with its host seconds."""
+    recs = dryrun_runs([["--arch", MODEL_ARCH, "--shape", s]
+                        for s in DRYRUN_POD_SHAPES], "dryrun_pod_cell")
+    by = {(r["shape"], r["mesh"]): r for r in recs}
+    for shape in DRYRUN_POD_SHAPES:
+        one = by[(shape, "h100x1")]["memory"]["argument_gb"]
+        for mesh, devices in (("pod16x16", 256), ("pod2x16x16", 512)):
+            rec = by[(shape, mesh)]
+            what = f"dryrun_pods {shape} {mesh}"
+            if rec["devices"] != devices:
+                raise AssertionError(f"{what}: {rec['devices']} devices")
+            arg = rec["memory"]["argument_gb"]
+            if not one / devices <= arg <= one:
+                raise AssertionError(f"{what}: {arg} GB of arguments a "
+                                     f"device, one card's {one}")
+            cc = rec["ops"]["collective_counts"]
+            if shape.startswith("train") and not (
+                    cc.get("all-gather", 0) > 0 and cc.get("all-reduce", 0)
+                    > 0):
+                raise AssertionError(f"{what}: collectives {cc}")
+    return dict(phase="dryrun_pods", arch=MODEL_ARCH,
+                shapes=list(DRYRUN_POD_SHAPES), cells=len(recs),
+                analyze_s={f"{r['shape']}__{r['mesh']}": r["analyze_s"]
+                           for r in recs})
 
 
 def time_family_kernels(torch):
@@ -2928,7 +2993,7 @@ def main() -> int:
         out = fn(*args)
         paths[label] = {k: getattr(mod, attr)
                         for k, (mod, attr) in counters.items()}
-        for name in expects.split("+"):
+        for name in filter(None, expects.split("+")):
             if paths[label][name] <= 0:
                 raise AssertionError(f"path {label} never launched the "
                                      f"{name} kernel")
@@ -3026,6 +3091,10 @@ def main() -> int:
                 np)
     dry["seconds"] = round(time.perf_counter() - t_dry, 3)
     emit(dict(dry, launches=paths["dryrun"]))
+    t_pods = time.perf_counter()
+    pods = drive("dryrun_pods", "", dryrun_pods_path)
+    pods["seconds"] = round(time.perf_counter() - t_pods, 3)
+    emit(dict(pods, launches=paths["dryrun_pods"]))
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in counters}
 
     # timings at the main-path shapes (not counted as launches)

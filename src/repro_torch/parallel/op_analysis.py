@@ -1,5 +1,5 @@
-"""Op-level analysis of one eager PyTorch call: FLOPs, device-memory bytes
-and the roofline of one H100 — the dry run's instrument.
+"""Op-level analysis of one eager PyTorch call: FLOPs, device-memory bytes,
+collectives and the roofline of an H100 — the dry run's instrument.
 
 The counterpart of the reference's `parallel/hlo_analysis.py`, renamed as
 `core/sweep/torchbody.py` is: there is no compiled HLO to parse.
@@ -18,9 +18,33 @@ instructions, so per op:
   * ``hbm_bytes``: the bytes of the operands (each tensor's strided span,
     so a broadcast operand counts its distinct elements) plus those of
     the result;
-  * ``n_instructions``: the ops counted;
-  * ``wire_bytes`` 0, ``collective_counts`` and ``collective_wire`` {}:
-    one card has no collectives.
+  * ``n_instructions``: the ops counted, collectives included;
+  * ``collective_counts``, ``collective_wire`` (by the reference's names:
+    ``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``) and ``wire_bytes``: each collective of
+    `torch.distributed`'s functional API (`_c10d_functional`, and
+    DTensor's `_dtensor.shard_dim_alltoall`) with the wire bytes of the
+    reference's ring model (`_wire_bytes`, from the local result's and
+    operand's bytes and the group's size); a collective counts no FLOPs
+    and no device-memory bytes. ``collective_links`` names, a kind, the
+    links its groups cross (``nvlink`` within a node of
+    `CARDS_PER_NODE` consecutive ranks, ``ib`` across nodes), and
+    ``link_wire`` sums the wire bytes by link. A call on plain tensors
+    has none of them.
+
+**A sharded call** (DTensor arguments, a mesh; `launch/mesh.py`) is
+counted a device, for rank 0: the mode lets DTensor dispatch each op
+(it declines every op whose types hold a DTensor), so what it sees is
+the local op on each rank's shard and each collective DTensor runs on
+it. DTensor's own bookkeeping runs uncounted (`_DTENSOR_INTERNALS`, by
+the Python frames that call it): the ops its sharding propagation runs
+at global shapes (on `FakeTensor`s, or on `meta` tensors to trace a
+decomposition) once a signature, which, counted, would come and go
+with what its caches hold from earlier calls; and the ops that lay out
+a mesh.
+``argument_bytes`` and ``output_bytes`` count each DTensor's local
+shard; rank 0 holds the largest shard of an uneven dimension, the
+reference's padded shard.
 
 Views, `empty` and aliases move nothing and count nothing. What the
 dispatcher never sees is not counted: a kernel launched through ctypes
@@ -40,13 +64,21 @@ at the 700 W limit): bf16 and fp16 tensor cores 989e12, TF32 495e12,
 float32 on the CUDA cores 67e12, HBM 3.35e12 B/s. A product runs at the
 peak of its dtype (float32 at TF32's when
 `torch.backends.cuda.matmul.allow_tf32` is set while it is counted); every
-other FLOP at the float32 rate.
+other FLOP at the float32 rate. Links (`LINK_BW`, NVIDIA's data sheets):
+NVLink 4 within an HGX node of `CARDS_PER_NODE` = 8 cards, 450e9 B/s a
+direction a card (`NVLINK_BW`); across nodes one 400 Gb/s InfiniBand
+NIC a card, 50e9 B/s (`IB_BW`). The reference has one rate, its TPU
+pod's ICI; here a collective's wire bytes go at the rate of the slowest
+link its group crosses.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -57,6 +89,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
 HBM_BW = 3.35e12
 #: device memory of one H100, bytes (the dry run's `fits_one_card`)
 HBM_BYTES = 80e9
+#: bytes a second a direction of one card's links: NVLink 4 within a node,
+#: one 400 Gb/s InfiniBand NIC a card across nodes
+NVLINK_BW = 450e9
+IB_BW = 50e9
+LINK_BW = {"nvlink": NVLINK_BW, "ib": IB_BW}
+#: cards of one node (HGX H100), consecutive ranks
+CARDS_PER_NODE = 8
 
 _aten = torch.ops.aten
 #: ops that allocate or alias without touching memory
@@ -72,6 +111,25 @@ _MOVES = {"copy_", "_to_copy", "clone", "cat", "stack", "constant_pad_nd",
           "new_full", "arange", "scalar_tensor", "repeat", "index_put_",
           "index_put", "scatter", "tril", "triu", "embedding",
           "embedding_dense_backward"}
+#: `torch.distributed`'s functional collectives by the reference's names,
+#: in-place, `_out` and coalesced forms under their base name (DTensor's
+#: Shard-to-Shard all-to-all is an op of its own); a send is this
+#: device's half of a point-to-point exchange, its receive the other's
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "shard_dim_alltoall": "all-to-all",
+                "isend": "collective-permute",
+                "batch_p2p_ops": "collective-permute"}
+#: functional-collective ops that move nothing
+_COLLECTIVE_FREE = {"wait_tensor", "_wrap_tensor_autograd", "irecv"}
+_COLLECTIVE_NS = ("_c10d_functional", "_dtensor")
+#: DTensor's modules whose ops are its bookkeeping, not a device's work:
+#: sharding propagation, decomposition tracing, mesh layout
+_DTENSOR_INTERNALS = ("/distributed/tensor/_sharding_prop.py",
+                      "/distributed/tensor/_decompositions.py",
+                      "/distributed/device_mesh.py")
 
 
 def _tensors(obj):
@@ -95,8 +153,50 @@ def _span_bytes(t: torch.Tensor) -> int:
 
 
 def tree_bytes(obj) -> int:
-    """Bytes of every tensor in a tree of dicts, lists and tuples."""
-    return sum(t.numel() * t.element_size() for t in _tensors(obj))
+    """Bytes of every tensor in a tree of dicts, lists and tuples; of a
+    DTensor, this rank's shard."""
+    return sum(_local(t).numel() * t.element_size() for t in _tensors(obj))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _wire_bytes(op: str, result_b: float, operand_b: float, g: int) -> float:
+    """The reference's ring model (`hlo_analysis._wire_bytes`): bytes one
+    device sends for collective `op` over a group of `g`."""
+    frac = (g - 1) / g if g > 1 else 0.0
+    if op == "all-gather":
+        return result_b * frac
+    if op == "all-reduce":
+        return 2.0 * result_b * frac
+    if op == "reduce-scatter":
+        return operand_b * frac
+    if op == "all-to-all":
+        return result_b * frac
+    return float(result_b)  # collective-permute crosses a link once
+
+
+def _in_dtensor_internals() -> bool:
+    """Whether the op being dispatched was called by DTensor's own
+    bookkeeping (`_DTENSOR_INTERNALS`)."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_DTENSOR_INTERNALS):
+            return True
+        f = f.f_back
+    return False
+
+
+def _group(args) -> tuple:
+    """(size, link) of the process group a collective names: its name is
+    the op's last string argument. ``ib`` when its ranks span more than
+    one node of `CARDS_PER_NODE` consecutive ranks, else ``nvlink``."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    ranks = dist.get_process_group_ranks(_resolve_process_group(name))
+    nodes = {r // CARDS_PER_NODE for r in ranks}
+    return len(ranks), ("ib" if len(nodes) > 1 else "nvlink")
 
 
 def _product_dtype(dtype: torch.dtype) -> str:
@@ -118,16 +218,20 @@ class OpAnalysis:
     dot_flops_by_dtype: dict = field(default_factory=dict)
     argument_bytes: int = 0
     output_bytes: int = 0
+    collective_links: dict = field(default_factory=dict)
+    link_wire: dict = field(default_factory=dict)
 
     def roofline(self) -> dict:
-        """The reference's roofline terms on one H100: seconds of compute
+        """The reference's roofline terms on an H100: seconds of compute
         (each product at its dtype's peak, the rest at float32's), of
-        memory and of collectives (0), the dominant one and the bound."""
+        memory and of collectives (each link's wire bytes at its rate),
+        the dominant one and the bound."""
         ct = sum(f / PEAK_FLOPS[dt] for dt, f in
                  self.dot_flops_by_dtype.items())
         ct += (self.flops - self.dot_flops) / PEAK_FLOPS["float32"]
         mt = self.hbm_bytes / HBM_BW
-        lt = 0.0
+        lt = sum((w / LINK_BW[link] for link, w in self.link_wire.items()),
+                 0.0)
         dom = max((("compute", ct), ("memory", mt), ("collective", lt)),
                   key=lambda kv: kv[1])
         return {"compute_s": ct, "memory_s": mt, "collective_s": lt,
@@ -153,10 +257,11 @@ class _Unkeyed(Exception):
 
 
 def _key(obj):
-    """A hashable signature of an op's arguments, all tensors on `meta`;
-    raises `_Unkeyed` for anything else."""
+    """A hashable signature of an op's arguments, all tensors plain and on
+    `meta`; raises `_Unkeyed` for anything else (a DTensor's device is
+    `meta` too, but its result must stay a DTensor)."""
     if isinstance(obj, torch.Tensor):
-        if obj.device.type != "meta":
+        if obj.device.type != "meta" or isinstance(obj, DTensor):
             raise _Unkeyed
         return ("T", obj.shape, obj.stride(), obj.storage_offset(),
                 obj.dtype)
@@ -202,11 +307,19 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.out = out
         self.memo: dict = {}
+        self.sharded = False          # a DTensor op has been seen
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            self.sharded = True
+            return NotImplemented   # DTensor runs it: its local ops come back
         if func.is_view or func in _FREE:
             return func(*args, **kwargs)
+        if self.sharded and _in_dtensor_internals():
+            return func(*args, **kwargs)
+        if func.namespace in _COLLECTIVE_NS:
+            return self._collective(func, args, kwargs)
         try:
             key = (func, _key(args), _key(kwargs))
         except _Unkeyed:
@@ -232,6 +345,34 @@ class _Counter(TorchDispatchMode):
         if dt is not None:
             o.dot_flops += dot
             o.dot_flops_by_dtype[dt] = o.dot_flops_by_dtype.get(dt, 0.0) + dot
+        return res
+
+    def _collective(self, func, args, kwargs):
+        res = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if name in _COLLECTIVE_FREE:
+            return res
+        base = name.rstrip("_").removesuffix("_out").removesuffix(
+            "_coalesced")
+        kind = _COLLECTIVES.get(base)
+        if kind is None:
+            raise NotImplementedError(f"analyze_ops: collective {func} "
+                                      f"is not counted")
+        g, link = _group(args)
+        result_b = sum(t.numel() * t.element_size() for t in _tensors(res))
+        operand_b = sum(t.numel() * t.element_size()
+                        for t in _tensors((args, kwargs)))
+        wire = _wire_bytes(kind, result_b, operand_b, g)
+        o = self.out
+        o.n_instructions += 1
+        o.wire_bytes += wire
+        o.collective_counts[kind] = o.collective_counts.get(kind, 0) + 1
+        o.collective_wire[kind] = o.collective_wire.get(kind, 0.0) + wire
+        links = o.collective_links.setdefault(kind, [])
+        if link not in links:
+            links.append(link)
+            links.sort()
+        o.link_wire[link] = o.link_wire.get(link, 0.0) + wire
         return res
 
 

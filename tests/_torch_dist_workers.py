@@ -10,7 +10,11 @@ and one intra-op thread, runs `target(rank, **kw)` and sends back what
 it returns; a rank that raises fails the call with its traceback, and
 one that has not answered within `timeout` seconds fails it too. Every
 rank destroys its group in a `finally`, and every process is joined (or
-killed) before `run_ranks` returns.
+killed) before `run_ranks` returns. `run_alone(target, ...)` runs
+`target(**kw)` the same way in one fresh process with no group: the
+fake worlds of the dry run (`launch.mesh.fake_world`) are made there,
+never in the test's own process, where a leftover group would change
+what later tests see.
 """
 from __future__ import annotations
 
@@ -127,6 +131,38 @@ def _run_ranks(target, world, backend, timeout, kw) -> list:
                 p.kill()
                 p.join()
     return [results[r] for r in range(world)]
+
+
+def _alone_main(target, kw, out):
+    import warnings
+    warnings.filterwarnings("ignore")
+    torch.set_num_threads(1)
+    try:
+        out.put(("ok", target(**kw)))
+    except BaseException:
+        out.put(("err", traceback.format_exc()))
+
+
+def run_alone(target, *, timeout: float = TIMEOUT, **kw):
+    """`target(**kw)` in one fresh process (spawn); its result, or its
+    traceback raised as a `RuntimeError`."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_alone_main, args=(target, kw, out))
+    proc.start()
+    try:
+        status, payload = out.get(timeout=timeout)
+    except queue.Empty:
+        raise TimeoutError(f"{target.__name__}: no answer within "
+                           f"{timeout} s") from None
+    finally:
+        proc.join(timeout=15)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status == "err":
+        raise RuntimeError(f"{target.__name__} failed:\n{payload}")
+    return payload
 
 
 # ------------------------------------------------------------- rank bodies
@@ -482,3 +518,164 @@ def np_close(got, want, rel, atol=0.0) -> tuple:
     err = float(np.abs(g - w).max()) if g.size else 0.0
     bar = rel * (float(np.abs(w).max()) if w.size else 0.0) + atol
     return err, bar
+
+
+# ------------------------------------------------- the dry run's fake worlds
+
+def _counts(ops) -> dict:
+    """The collective fields of an `OpAnalysis`, and its roofline."""
+    return {"counts": ops.collective_counts, "wire": ops.collective_wire,
+            "wire_bytes": ops.wire_bytes, "links": ops.collective_links,
+            "link_wire": ops.link_wire, "roofline": ops.roofline(),
+            "n_ops": ops.n_instructions, "flops": ops.flops,
+            "argument_bytes": ops.argument_bytes,
+            "output_bytes": ops.output_bytes}
+
+
+def count_step_worker(rank=0, *, model, device="cpu", fake=False):
+    """`analyze_ops` of one train step of the reduced qwen2-0.5b (f32,
+    batch 4 x 32) on a (world // model, model) mesh of `device`: on a
+    real group, over this rank's real state (`make_state`), or, with
+    `fake`, in the fake world of `world` ranks made here, over the `meta`
+    state of `launch.specs` laid out the same way. Returns rank 0's
+    collective counts, wire bytes and links."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.dims import make_dims
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel.op_analysis import analyze_ops
+    from repro_torch.parallel.sharding import distribute
+    from repro_torch.train.step import make_state, make_train_step
+    cfg = _cfg("qwen2-0.5b")
+    dims = make_dims(cfg, tp=model, param_dtype=torch.float32,
+                     compute_dtype=torch.float32)
+    ocfg = OptConfig()
+
+    def count(on):
+        batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, 4, 32).items()}
+        if on == "meta":
+            state, _ = SP.state_shapes_and_specs(cfg, dims, "train", None,
+                                                 opt_cfg=ocfg)
+            batch = {k: torch.empty_like(v, device="meta")
+                     for k, v in batch.items()}
+        else:
+            state = make_state(torch.Generator(device=on).manual_seed(0),
+                               cfg, dims, ocfg, device=on)
+            batch = {k: v.to(on) for k, v in batch.items()}
+        mesh, ctx = _context(model, device)
+        with ctx:
+            _, specs = SP.state_shapes_and_specs(cfg, dims, "train", None,
+                                                 opt_cfg=ocfg)
+            st = distribute(state, SP.to_shardings(mesh, specs))
+            bt = distribute(batch, SP.to_shardings(
+                mesh, SP.batch_spec_axes(cfg, batch)))
+            return _counts(analyze_ops(make_train_step(cfg, dims, ocfg,
+                                                       device=on), st, bt))
+
+    if fake:
+        with fake_world(4):
+            out = count("meta")
+            out["backend"] = dist.get_backend()
+        return out
+    out = count(device)
+    out["backend"] = dist.get_backend()
+    return out if rank == 0 else None
+
+
+def redistribute_worker():
+    """One redistribution at a time on the fake (data=16, model=16) world,
+    counted by `analyze_ops`: a [64, 32] float32 tensor Shard(0) over
+    'model' made Replicate, a Partial over 'model' made Replicate, and
+    Shard(0) made Shard(1) over 'model'; and a plain call."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.parallel.op_analysis import analyze_ops
+    R = Replicate()
+    x = torch.empty(64, 32, device="meta")
+    with fake_world(256):
+        mesh = make_production_mesh()
+        sh = distribute_tensor(x, mesh, [R, Shard(0)])
+        part = DTensor.from_local(torch.empty(64, 32, device="meta"), mesh,
+                                  [R, Partial()])
+        return {
+            "gather": _counts(analyze_ops(
+                lambda t: t.redistribute(mesh, [R, R]), sh)),
+            "reduce": _counts(analyze_ops(
+                lambda t: t.redistribute(mesh, [R, R]), part)),
+            "all_to_all": _counts(analyze_ops(
+                lambda t: t.redistribute(mesh, [R, Shard(1)]), sh)),
+            "plain": _counts(analyze_ops(lambda t: (t * 2).sum(), x))}
+
+
+def fake_world_worker():
+    """`fake_world`'s refusal of a group already initialized (a gloo
+    group of one, which stays), and that it leaves no group behind, on a
+    normal exit and on an exception."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import fake_world
+    out = {}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        with fake_world(256):
+            out["replaced"] = True
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    out["kept"] = (dist.is_initialized(), dist.get_backend(),
+                   dist.get_world_size())
+    dist.destroy_process_group()
+    with fake_world(512):
+        out["inside"] = (dist.get_backend(), dist.get_world_size(),
+                         dist.get_rank())
+    out["after_exit"] = dist.is_initialized()
+    try:
+        with fake_world(256):
+            raise KeyError("inside")
+    except KeyError:
+        pass
+    out["after_error"] = dist.is_initialized()
+    return out
+
+
+#: small shapes for the dry run's reduced cells (the batch divides the
+#: multi-pod mesh's 32 batch ways, the sequence its 16 model ways)
+TINY_SHAPES = {"tiny_train": (64, 32, "train"),
+               "tiny_decode": (64, 32, "decode")}
+
+
+def dryrun_cli_worker(*, runs, moe_experts=16):
+    """`launch.dryrun.main(argv)` for each (argv, out_dir) of `runs`, in
+    this one process, on the reduced configs (an MoE's expert count set
+    to `moe_experts`, which the model ways divide) and `TINY_SHAPES`.
+    Returns each run's exit code and the records it wrote, by file."""
+    import glob
+    import json
+    import os
+
+    from repro_torch.common import config as C
+    from repro_torch.launch import dryrun as D
+    for name, (s, b, kind) in TINY_SHAPES.items():
+        C.SHAPE_SETS[name] = C.ShapeConfig(name, s, b, kind)
+    full = D.get_arch
+
+    def reduced(name):
+        cfg = full(name).reduced()
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, n_experts=moe_experts))
+        return cfg
+    D.get_arch = reduced
+    out = []
+    for argv, out_dir in runs:
+        rc = D.main(list(argv) + ["--out", out_dir])
+        recs = {}
+        for path in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
+            with open(path) as f:
+                recs[os.path.basename(path)] = json.load(f)
+        out.append({"rc": rc, "records": recs})
+    return out

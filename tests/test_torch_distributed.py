@@ -39,6 +39,11 @@ on host meshes (data=2, model=2) and (data=1, model=4).
   * The multi-pod rule's batch axis ("pod", "data") splits rows in JAX's
     row-major order over the named axes; the production meshes refuse a
     world of 4 by name.
+  * The dry run's count against a real run: `analyze_ops` of the reduced
+    qwen2-0.5b's train step (f32, 4 x 32) on a (2, 2) "cpu" mesh, in a
+    fake 4-rank world on `meta` (`launch.mesh.fake_world`, one process)
+    and on 4 gloo processes over real tensors: rank 0's collectives by
+    kind, their wire bytes and links, its ops and FLOPs, all equal.
 """
 import os
 
@@ -328,3 +333,22 @@ def test_mesh_functions_refuse_a_world_they_do_not_fit():
     assert "model=3" in out["host3"]
     assert out["host2"] == ([2, 2], ["data", "model"])
 
+
+
+# ------------------------------------------------------ the dry run's count
+
+@pytest.fixture(scope="module")
+def step_counts():
+    fake = W.run_alone(W.count_step_worker, model=2, fake=True)
+    (real,) = W.run_ranks(W.count_step_worker, model=2)[:1]
+    return fake, real
+
+
+@pytest.mark.parametrize("field", ["counts", "wire", "wire_bytes", "links",
+                                   "link_wire", "n_ops", "flops"])
+def test_fake_world_counts_what_a_gloo_run_runs(step_counts, field):
+    fake, real = step_counts
+    assert (fake["backend"], real["backend"]) == ("fake", "gloo")
+    assert fake["counts"].get("all-gather", 0) > 0
+    assert fake["counts"].get("all-reduce", 0) > 0
+    assert fake[field] == real[field]

@@ -29,6 +29,15 @@ fewer than 4 cards): 4 processes a test over NCCL, one card a rank
     sharded on (2, 2) with `shardings=to_shardings(...)`: every rank's
     local shard equals its slice of the saved leaf, every full tensor
     equals it exactly.
+  * The dry run's count against NCCL: `analyze_ops` of the reduced
+    qwen2-0.5b's train step (f32, 4 x 32) on a (2, 2) "cuda" mesh, in a
+    fake 4-rank world on `meta` (one process, no card) and on the 4
+    cards: rank 0's collectives by kind, their wire bytes and links,
+    equal (a "cuda" mesh, as the dry run's: DTensor runs a
+    Shard-to-Shard move there as an all-to-all, on gloo's "cpu" mesh as
+    an all-gather). Ops and FLOPs differ by design: on the card kernel E's
+    ctypes launch is invisible to the count, on `meta` its plain version
+    is counted.
 
 Run on a 4-card machine:
   PYTHONPATH=src:tests python -m pytest -q -m gpu --noconftest \\
@@ -380,3 +389,17 @@ def test_one_card_checkpoint_restores_sharded_on_four(tmp_path):
                       "sharded_leaves_by_card": [r["sharded_leaves"]
                                                  for r in out]}),
           flush=True)
+
+
+def test_fake_world_counts_what_nccl_runs():
+    _cards()
+    fake = W.run_alone(W.count_step_worker, model=2, device="cuda",
+                       fake=True)
+    (real,) = W.run_ranks(W.count_step_worker, CARDS, backend="nccl",
+                          timeout=TIMEOUT, model=2, device="cuda")[:1]
+    assert (fake["backend"], real["backend"]) == ("fake", "nccl")
+    assert fake["counts"].get("all-gather", 0) > 0
+    for field in ("counts", "wire", "wire_bytes", "links", "link_wire"):
+        assert fake[field] == real[field], field
+    print(json.dumps({"test": "fake world vs nccl", "counts": real["counts"],
+                      "wire_bytes": real["wire_bytes"]}), flush=True)

@@ -230,7 +230,8 @@ def test_kernel_wrappers_take_meta_to_the_plain_version():
 def test_dryrun_cli_writes_an_ok_record_and_the_report_reads_it(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "mamba2-130m", "--shape", "decode_32k", "--out", str(tmp_path)],
+         "mamba2-130m", "--shape", "decode_32k", "--one-card-only",
+         "--out", str(tmp_path)],
         cwd=str(ROOT), env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
