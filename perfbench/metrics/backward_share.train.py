@@ -1,0 +1,19 @@
+"""Share of the traced window the card spends in the backward of each
+micro-batch (`torch.autograd.grad` with the per-layer rematerialization,
+the zero and resolve of the gradients and the accumulation add, in
+`train/step.make_grad_fn`), percent: the device seconds of the program's
+`train.backward` spans (CUDA events at their entry and exit, read after
+the window's last synchronisation) over the window."""
+
+
+def read(data):
+    try:
+        from repro_torch.common import trace
+    except ImportError:         # a program without the recorder
+        return None
+    t0, t1 = data["window"]
+    spans = [s for s in trace.records((t0, t1))
+             if s.name == "train.backward"]
+    if not spans or t1 <= t0:
+        return None
+    return 100.0 * sum(trace.device_seconds(s) for s in spans) / (t1 - t0)

@@ -88,6 +88,7 @@ from typing import Callable, Dict
 
 import numpy as np
 
+from repro_torch.common import trace
 from repro_torch.core.refresh.workload import (Workload, make_workload,
                                          quantize_streams)
 
@@ -448,17 +449,19 @@ def make_closed_workload(name: str, reqs: int = 800, seed: int = 0
 def make_closed_demand(name: str, n_banks: int = 8, n_subarrays: int = 8,
                        reqs: int = 800, seed: int = 0, dt_ns: float = 6.0
                        ) -> ClosedDemand:
-    """Generate + tick-quantize the named closed scenario's demand."""
-    wl = make_closed_workload(name, reqs, seed)
-    streams = quantize_streams(wl.generate(n_banks, n_subarrays), dt_ns)
-    return ClosedDemand(
-        name=name, workload=wl,
-        is_write=np.stack([s["is_write"] for s in streams]),
-        bank=np.stack([s["bank"] for s in streams]),
-        row=np.stack([s["row"] for s in streams]),
-        sub=np.stack([s["subarray"] for s in streams]),
-        think=np.stack([s["think"] for s in streams]),
-        n_banks=n_banks, n_subarrays=n_subarrays, dt_ns=dt_ns).validate()
+    """Generate + tick-quantize the named closed scenario's demand (the
+    span ``demand``)."""
+    with trace.span("demand"):
+        wl = make_closed_workload(name, reqs, seed)
+        streams = quantize_streams(wl.generate(n_banks, n_subarrays), dt_ns)
+        return ClosedDemand(
+            name=name, workload=wl,
+            is_write=np.stack([s["is_write"] for s in streams]),
+            bank=np.stack([s["bank"] for s in streams]),
+            row=np.stack([s["row"] for s in streams]),
+            sub=np.stack([s["subarray"] for s in streams]),
+            think=np.stack([s["think"] for s in streams]),
+            n_banks=n_banks, n_subarrays=n_subarrays, dt_ns=dt_ns).validate()
 
 
 def _closed_preset(preset: str, n_cores: int):

@@ -21,6 +21,11 @@ tests; the traced backends are replaced by `backend="torch"` (a host loop
 over `sweep.torchbody`) and `backend="mega"` (the CUDA tick-loop kernels,
 one per mode). Both modes run on every backend.
 
+Each call records the spans (`repro_torch.common.trace`) ``sweep`` ⊃
+``sweep.grid`` ⊃ (``demand`` for each named scenario, ``sweep.grid.cells``),
+and on `mega` ``sweep.run`` and ``sweep.finalize``, whose durations are
+also `SweepResult.seconds`.
+
 State is stacked over GLOBAL banks: every cell carries a full
 [channel, rank, bank] hierarchy (`SweepSpec.n_channels` x `n_ranks` x
 `n_banks`), flattened to ``gb = (channel * n_ranks + rank) * n_banks +
@@ -134,13 +139,13 @@ Backends:
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from itertools import product
 from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.common import trace
 from repro_torch.core.policy import ALL_BANKS, MaintenanceView, resolve_policy
 from repro_torch.core.refresh.scenarios import (ClosedDemand, Trace,
                                           make_closed_demand, make_trace)
@@ -534,47 +539,48 @@ class _Grid:
             [scn_index[_scenario_name(s)] for _, s, _ in self.cells],
             dtype=np.int32)
 
-        for g, (p, s, d) in enumerate(self.cells):
-            tk = self.timing[d]
-            pol = resolve_policy(p)
-            kind, params = classify(pol, tk.budget)
-            self.kind[g] = kind
-            self.level_ab[g] = (not pol.ideal) and pol.level == "ab"
-            self.sarp[g] = pol.sarp
-            self.hra[g] = bool(getattr(pol, "hra", False))
-            self.wrp[g] = params.get("wrp", False)
-            self.urgent_at[g] = params.get("urgent_at", 1)
-            self.budget[g] = tk.budget
-            for f in ("REFI", "RFC_PB", "RFC_AB", "TRP", "HIT", "MISS",
-                      "WR", "TURN", "RTR", "SARP_PEN"):
-                getattr(self, f)[g] = getattr(tk, f)
-            self.phase[g] = np.arange(B, dtype=np.int32) * tk.REFI_PB
-            self.rank_phase[g] = (np.arange(self.R, dtype=np.int32)
-                                  * (tk.REFI // self.R))
-            if kind == KIND_CUSTOM:
-                self.customs.append((g, pol))
-            if self.closed:
-                dem = self.demands[_scenario_name(s)]
-                c, n = dem.is_write.shape
-                if stack_streams:
-                    self.s_write[g, :c, :n] = dem.is_write
-                    self.s_bank[g, :c, :n] = dem.bank
-                    self.s_row[g, :c, :n] = dem.row
-                    self.s_sub[g, :c, :n] = dem.sub
-                    self.s_think[g, :c, :n] = dem.think
-                self.n_req_c[g, :c] = n
-                self.mlp_g[g] = dem.mlp
-            elif stack_streams:
-                for b, (arr, row, sub, isw) in enumerate(
-                        split[_scenario_name(s)]):
-                    n = len(arr)
-                    self.n_per_bank[g, b] = n
-                    self.q_arrive[g, b, :n] = arr
-                    self.q_row[g, b, :n] = row
-                    self.q_sub[g, b, :n] = sub
-                    self.q_write[g, b, :n] = isw
-            else:
-                self.n_per_bank[g] = self.scn_npb[self.scn_of_cell[g]]
+        with trace.span("sweep.grid.cells"):
+            for g, (p, s, d) in enumerate(self.cells):
+                tk = self.timing[d]
+                pol = resolve_policy(p)
+                kind, params = classify(pol, tk.budget)
+                self.kind[g] = kind
+                self.level_ab[g] = (not pol.ideal) and pol.level == "ab"
+                self.sarp[g] = pol.sarp
+                self.hra[g] = bool(getattr(pol, "hra", False))
+                self.wrp[g] = params.get("wrp", False)
+                self.urgent_at[g] = params.get("urgent_at", 1)
+                self.budget[g] = tk.budget
+                for f in ("REFI", "RFC_PB", "RFC_AB", "TRP", "HIT", "MISS",
+                          "WR", "TURN", "RTR", "SARP_PEN"):
+                    getattr(self, f)[g] = getattr(tk, f)
+                self.phase[g] = np.arange(B, dtype=np.int32) * tk.REFI_PB
+                self.rank_phase[g] = (np.arange(self.R, dtype=np.int32)
+                                      * (tk.REFI // self.R))
+                if kind == KIND_CUSTOM:
+                    self.customs.append((g, pol))
+                if self.closed:
+                    dem = self.demands[_scenario_name(s)]
+                    c, n = dem.is_write.shape
+                    if stack_streams:
+                        self.s_write[g, :c, :n] = dem.is_write
+                        self.s_bank[g, :c, :n] = dem.bank
+                        self.s_row[g, :c, :n] = dem.row
+                        self.s_sub[g, :c, :n] = dem.sub
+                        self.s_think[g, :c, :n] = dem.think
+                    self.n_req_c[g, :c] = n
+                    self.mlp_g[g] = dem.mlp
+                elif stack_streams:
+                    for b, (arr, row, sub, isw) in enumerate(
+                            split[_scenario_name(s)]):
+                        n = len(arr)
+                        self.n_per_bank[g, b] = n
+                        self.q_arrive[g, b, :n] = arr
+                        self.q_row[g, b, :n] = row
+                        self.q_sub[g, b, :n] = sub
+                        self.q_write[g, b, :n] = isw
+                else:
+                    self.n_per_bank[g] = self.scn_npb[self.scn_of_cell[g]]
 
         self.has_stag = bool((self.kind == KIND_STAG).any())
         self.has_hra = bool(self.hra.any())
@@ -2031,25 +2037,26 @@ def _run_mega(grid: _Grid, n_shards: int = 1, device=None,
     With CPU tensors the same host layout runs the plain version
     (`sweep.torchbody`) instead. Bit-identical to every other backend.
     `seconds`, when given, receives the wall seconds of the device run
-    (``"run"``: upload, launch, download) and of `_finalize`."""
+    (``"run"``: pack, upload, launch, download) and of `_finalize`: the
+    durations of the spans ``sweep.run`` and ``sweep.finalize``."""
     _check_traced_guards(grid, backend="mega")
     from repro_torch.kernels.sweep_megakernel import run_mega
 
-    t0 = time.perf_counter()
-    out = run_mega(grid, n_shards=n_shards, device=device)
-    t1 = time.perf_counter()
-    cf = out["core_finish"]
-    cells = [_finalize(grid, g, reads=out["reads"][g],
-                      writes=out["writes"][g], hits=out["hits"][g],
-                      misses=out["misses"][g], refpb=out["refpb"][g],
-                      refab=out["refab"][g], lat_sum=out["lat_sum"][g],
-                      hist=None, maxlag=out["maxlag"][g],
-                      last_done=out["last_done"][g],
-                       finished=out["finished"][g], p99=out["p99"][g],
-                       core_finish=None if cf is None else cf[g])
-             for g in range(grid.G)]
+    with trace.timed("sweep.run") as run:
+        out = run_mega(grid, n_shards=n_shards, device=device)
+    with trace.timed("sweep.finalize") as fin:
+        cf = out["core_finish"]
+        cells = [_finalize(grid, g, reads=out["reads"][g],
+                           writes=out["writes"][g], hits=out["hits"][g],
+                           misses=out["misses"][g], refpb=out["refpb"][g],
+                           refab=out["refab"][g], lat_sum=out["lat_sum"][g],
+                           hist=None, maxlag=out["maxlag"][g],
+                           last_done=out["last_done"][g],
+                           finished=out["finished"][g], p99=out["p99"][g],
+                           core_finish=None if cf is None else cf[g])
+                 for g in range(grid.G)]
     if seconds is not None:
-        seconds.update(run=t1 - t0, finalize=time.perf_counter() - t1)
+        seconds.update(run=run.seconds, finalize=fin.seconds)
     return cells
 
 
@@ -2095,6 +2102,13 @@ def sweep(spec: SweepSpec, backend: str = "mega",
     backend and *reconciles* — every CellResult must match bit-for-bit,
     or the sweep raises.
     """
+    with trace.span("sweep"):
+        return _sweep(spec, backend, arbiter, record_commands=record_commands,
+                      n_shards=n_shards, device=device)
+
+
+def _sweep(spec: SweepSpec, backend: str, arbiter: Optional[str], *,
+           record_commands: bool, n_shards: int, device) -> SweepResult:
     closed = spec.mode == "closed"
     if record_commands and not (backend in ("batched", "mega") and closed):
         raise ValueError(
@@ -2106,10 +2120,9 @@ def sweep(spec: SweepSpec, backend: str = "mega",
             f"n_shards is a megakernel knob; backend={backend!r} runs on "
             "one device (use backend='mega')")
     if backend == "mega":
-        t0 = time.perf_counter()
-        grid = _Grid(spec, stack_streams=False)
-        t1 = time.perf_counter()
-        secs = {"grid": t1 - t0}
+        with trace.timed("sweep.grid") as g:
+            grid = _Grid(spec, stack_streams=False)
+        secs = {"grid": g.seconds}
         cells = _run_mega(grid, n_shards=n_shards, device=device,
                           seconds=secs)
         res = SweepResult(spec, cells, backend)
@@ -2126,7 +2139,8 @@ def sweep(spec: SweepSpec, backend: str = "mega",
                     f"{len(cells)}")
             res.commands = ref.commands
         return res
-    grid = _Grid(spec)
+    with trace.span("sweep.grid"):
+        grid = _Grid(spec)
     traces = None
     if backend == "batched":
         arb = arbiter or "numpy"

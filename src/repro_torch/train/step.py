@@ -15,11 +15,17 @@ Sharded, as the reference's under a mesh: called inside
 (`parallel.distribute` with `launch.specs.to_shardings`), the loss
 comes out replicated and every gradient in its param's placements
 (a `Partial` gradient resolved by a reduce-scatter or an all-reduce).
+
+A step records the spans (`repro_torch.common.trace`) ``train.step`` ⊃
+``train.forward`` and ``train.backward`` (a micro-batch each; the
+backward holds the remat, the gradients' resolve and the accumulation)
+and ``train.optimizer``, the three inner ones also timed on the card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.treeutil import (tree_flatten, tree_leaves, tree_map,
                                          tree_unflatten)
 from repro_torch.models.api import get_model
@@ -75,15 +81,20 @@ def make_grad_fn(cfg, dims: Dims, *, accum: int = 1):
     reference's scan does (the model's own metrics are then dropped)."""
     mod = get_model(cfg)
 
-    def one(leaves, treedef, batch):
+    def one(leaves, treedef, batch, acc=None):
+        dev = leaves[0].device
         ps = [p.detach().requires_grad_() for p in leaves]
-        loss, metrics = mod.train_loss(tree_unflatten(treedef, ps), batch,
-                                       cfg, dims)
-        loss = replicated(loss)
-        grads = torch.autograd.grad(loss, ps, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else
-                 resolved(g, p.placements) if is_dtensor(g) else g
-                 for p, g in zip(ps, grads)]
+        with trace.span("train.forward", dev):
+            loss, metrics = mod.train_loss(tree_unflatten(treedef, ps),
+                                           batch, cfg, dims)
+            loss = replicated(loss)
+        with trace.span("train.backward", dev):
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else
+                     resolved(g, p.placements) if is_dtensor(g) else g
+                     for p, g in zip(ps, grads)]
+            if acc is not None:
+                grads = [a + b for a, b in zip(acc, grads)]
         return loss.detach(), tree_map(torch.Tensor.detach, metrics), grads
 
     def grads_of(params, batch):
@@ -96,9 +107,8 @@ def make_grad_fn(cfg, dims: Dims, *, accum: int = 1):
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(accum):
-            loss_i, _, g = one(leaves, treedef,
-                               {k: v[i] for k, v in parts.items()})
-            gsum = [a + b for a, b in zip(gsum, g)]
+            loss_i, _, gsum = one(leaves, treedef,
+                                  {k: v[i] for k, v in parts.items()}, gsum)
             lsum = lsum + loss_i
         return lsum / accum, {}, tree_unflatten(treedef,
                                                 [g / accum for g in gsum])
@@ -115,17 +125,20 @@ def make_train_step(cfg, dims: Dims, opt_cfg: OptConfig, *, accum: int = 1,
     dev = torch.device(device)
 
     def step(state, batch):
-        require_device(dev)
-        check_on_device(state, dev, "the train state")
-        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
-                 for k, v in batch.items()}
-        params = state["params"]
-        loss, metrics, grads = grads_of(params, batch)
-        new_params, new_opt, opt_metrics = apply_updates(
-            params, grads, state["opt"], opt_cfg)
-        metrics = dict(metrics)
-        metrics.update(opt_metrics)
-        metrics["loss"] = loss
-        return {"params": new_params, "opt": new_opt}, metrics
+        with trace.span("train.step"):
+            require_device(dev)
+            check_on_device(state, dev, "the train state")
+            batch = {k: v if is_dtensor(v) else
+                     torch.as_tensor(v, device=dev)
+                     for k, v in batch.items()}
+            params = state["params"]
+            loss, metrics, grads = grads_of(params, batch)
+            with trace.span("train.optimizer", dev):
+                new_params, new_opt, opt_metrics = apply_updates(
+                    params, grads, state["opt"], opt_cfg)
+            metrics = dict(metrics)
+            metrics.update(opt_metrics)
+            metrics["loss"] = loss
+            return {"params": new_params, "opt": new_opt}, metrics
 
     return step
