@@ -54,8 +54,9 @@ event/tick simulators replay one demand stream:
     dem = make_closed_demand("closed_mixed", seed=1)   # quantized ticks
     list_closed_scenarios()
 
-`make_closed_demand` stacks the per-core streams into [n_cores, n_req]
-arrays with think gaps quantized via `workload.quantize_streams`, and
+`make_closed_demand` draws the per-core streams as [n_cores, n_req]
+arrays in one pass, with think gaps quantized via
+`workload.quantize_streams`, and
 keeps the originating `Workload` on the result so conformance tests can
 hand the identical demand to `DramSim`.
 
@@ -446,6 +447,17 @@ def make_closed_workload(name: str, reqs: int = 800, seed: int = 0
     return fn(reqs, int.from_bytes(h[:4], "little"))
 
 
+def _planes(wl: Workload, n_banks: int, n_subarrays: int) -> dict:
+    """`wl.generate`'s streams as [n_cores, n_req] planes: drawn in one
+    pass, or stacked from the streams of a subclass that overrides
+    `generate` (so it keeps the demand it hands `DramSim`)."""
+    if type(wl).generate is Workload.generate:
+        return wl._draw(n_banks, n_subarrays)
+    streams = wl.generate(n_banks, n_subarrays)
+    return {k: np.stack([s[k] for s in streams])
+            for k in ("is_write", "bank", "row", "subarray", "think")}
+
+
 def make_closed_demand(name: str, n_banks: int = 8, n_subarrays: int = 8,
                        reqs: int = 800, seed: int = 0, dt_ns: float = 6.0
                        ) -> ClosedDemand:
@@ -453,14 +465,11 @@ def make_closed_demand(name: str, n_banks: int = 8, n_subarrays: int = 8,
     span ``demand``)."""
     with trace.span("demand"):
         wl = make_closed_workload(name, reqs, seed)
-        streams = quantize_streams(wl.generate(n_banks, n_subarrays), dt_ns)
+        # the quantization is elementwise: one call over the [C, N] planes
+        q, = quantize_streams([_planes(wl, n_banks, n_subarrays)], dt_ns)
         return ClosedDemand(
-            name=name, workload=wl,
-            is_write=np.stack([s["is_write"] for s in streams]),
-            bank=np.stack([s["bank"] for s in streams]),
-            row=np.stack([s["row"] for s in streams]),
-            sub=np.stack([s["subarray"] for s in streams]),
-            think=np.stack([s["think"] for s in streams]),
+            name=name, workload=wl, is_write=q["is_write"], bank=q["bank"],
+            row=q["row"], sub=q["subarray"], think=q["think"],
             n_banks=n_banks, n_subarrays=n_subarrays, dt_ns=dt_ns).validate()
 
 

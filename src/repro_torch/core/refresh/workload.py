@@ -7,9 +7,23 @@ deterministic per seed.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
+
+#: One legacy generator a thread, reseeded at each draw: building a
+#: `RandomState` first seeds it from OS entropy, which costs more than a
+#: core's draws; `seed(s)` gives the same stream as `RandomState(s)`.
+_rng = threading.local()
+
+
+def _seeded(seed) -> np.random.RandomState:
+    rs = getattr(_rng, "rs", None)
+    if rs is None:
+        rs = _rng.rs = np.random.RandomState()
+    rs.seed(seed)
+    return rs
 
 
 @dataclass(frozen=True)
@@ -24,27 +38,39 @@ class Workload:
     seed: int = 0
 
     def generate(self, n_banks: int, n_subarrays: int, n_rows: int = 4096):
-        """Per-core request streams: structured arrays of
-        (is_write, bank, row, subarray, think_ns)."""
-        rs = np.random.RandomState(self.seed)
-        streams = []
-        for c in range(self.n_cores):
-            n = self.reqs_per_core
-            is_write = rs.rand(n) < self.write_ratio
-            bank = rs.randint(0, n_banks, n)
-            row = rs.randint(0, n_rows, n)
-            # enforce row locality: with prob row_hit_rate reuse previous
-            # (bank, row) of this core
-            reuse = rs.rand(n) < self.row_hit_rate
-            for i in range(1, n):
-                if reuse[i]:
-                    bank[i] = bank[i - 1]
-                    row[i] = row[i - 1]
-            subarray = row % n_subarrays
-            think = rs.exponential(self.think_ns, n)
-            streams.append(dict(is_write=is_write, bank=bank, row=row,
-                                subarray=subarray, think=think))
-        return streams
+        """Per-core request streams: dicts of (is_write, bank, row,
+        subarray, think_ns) arrays, each a row of `_draw`'s planes."""
+        p = self._draw(n_banks, n_subarrays, n_rows)
+        return [{k: v[c] for k, v in p.items()} for c in range(self.n_cores)]
+
+    def _draw(self, n_banks: int, n_subarrays: int, n_rows: int = 4096):
+        """Every core's stream as [n_cores, reqs_per_core] planes: is_write
+        bool, bank/row/subarray int64, think (ns) float64. One stream per
+        seed, drawn core by core (rand, randint, randint, rand,
+        exponential); with prob row_hit_rate a request reuses its core's
+        previous (bank, row), request 0 never."""
+        rs = _seeded(self.seed)
+        C, n = self.n_cores, self.reqs_per_core
+        is_write = np.empty((C, n), bool)
+        bank = np.empty((C, n), np.int64)
+        row = np.empty((C, n), np.int64)
+        reuse = np.empty((C, n), bool)
+        think = np.empty((C, n), np.float64)
+        for c in range(C):
+            is_write[c] = rs.rand(n) < self.write_ratio
+            bank[c] = rs.randint(0, n_banks, n)
+            row[c] = rs.randint(0, n_rows, n)
+            reuse[c] = rs.rand(n) < self.row_hit_rate
+            think[c] = rs.exponential(self.think_ns, n)
+        # row locality: a request takes the (bank, row) of the last request
+        # at or before it that drew its own (a forward fill of indices;
+        # request 0 is index 0 whatever it drew)
+        src = np.where(reuse, 0, np.arange(n))
+        np.maximum.accumulate(src, axis=1, out=src)
+        bank = np.take_along_axis(bank, src, axis=1)
+        row = np.take_along_axis(row, src, axis=1)
+        return dict(is_write=is_write, bank=bank, row=row,
+                    subarray=row % n_subarrays, think=think)
 
 
 @dataclass(frozen=True)
