@@ -14,12 +14,15 @@ CUDA kernel (`repro_torch.kernels.sweep_arbiter`), and the whole tick
 loop of each mode has one (`repro_torch.kernels.sweep_megakernel`).
 
 This module is the PyTorch/CUDA port's copy of the JAX package's
-`repro/core/sweep/engine.py`: the host side (`SweepSpec`, `_Grid`,
-`_finalize`, the numpy `batched` and `scalar` backends of both modes) is
-carried over unchanged and pinned equal to the original by the parity
-tests; the traced backends are replaced by `backend="torch"` (a host loop
-over `sweep.torchbody`) and `backend="mega"` (the CUDA tick-loop kernels,
-one per mode). Both modes run on every backend.
+`repro/core/sweep/engine.py`: the host side (`SweepSpec`, `_Grid`, the
+numpy `batched` and `scalar` backends of both modes) is carried over
+unchanged and pinned equal to the original by the parity tests;
+`_finalize_cells` turns a whole grid's stat columns into its cells in one
+vectorized pass, for every backend, and is held bit for bit to the
+original's per-cell `_finalize`; the traced backends are replaced by
+`backend="torch"` (a host loop over `sweep.torchbody`) and
+`backend="mega"` (the CUDA tick-loop kernels, one per mode). Both modes
+run on every backend.
 
 Each call records the spans (`repro_torch.common.trace`) ``sweep`` ⊃
 ``sweep.grid`` ⊃ (``demand`` for each named scenario, ``sweep.grid.cells``),
@@ -140,7 +143,8 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from itertools import product
+from itertools import product, repeat
+from operator import itemgetter
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -630,46 +634,100 @@ def _p99_ticks(hist_row: np.ndarray, n_reads: int) -> int:
     return int(np.searchsorted(np.cumsum(hist_row), target, side="left"))
 
 
-def _finalize(grid: _Grid, g: int, *, reads, writes, hits, misses, refpb,
-              refab, lat_sum, hist, maxlag, last_done, finished,
-              core_finish=None, p99=None) -> CellResult:
-    """Integer machine stats -> CellResult. Shared by every backend (and
-    mirrored by `DramSim.run_ticks`) so the derived floats are
-    bit-identical whenever the integers are. `core_finish` (per-core
-    finish ticks) switches the cell to closed-loop accounting: makespan
-    becomes the last core's finish instead of the last data burst.
-    `p99` (the p99 tick index, already reduced from the histogram — the
-    megakernel computes it in-kernel and never ships the [4096] rows
-    home) skips `_p99_ticks`; `hist` may be None then."""
+def _finalize_cells(grid: _Grid, *, reads, writes, hits, misses, refpb,
+                    refab, lat_sum, maxlag, last_done, finished,
+                    core_finish=None, p99=None, hist=None,
+                    index=None) -> list[CellResult]:
+    """Integer machine stat columns -> CellResults, every cell in one
+    vectorized pass. Shared by every backend (and mirrored by
+    `DramSim.run_ticks`) so the derived floats are bit-identical whenever
+    the integers are: each is the same IEEE operations, in the same
+    order, as `DramSim`'s scalar expression, and `energy_proxy` serves
+    both.
+
+    The columns are `[G]` (`core_finish` `[G, C]`, `hist` `[G, H]`) in
+    canonical cell order, or one row for each cell index in `index`.
+    `core_finish` (per-core finish ticks) switches the cells to
+    closed-loop accounting: makespan becomes the last of the scenario's
+    cores to finish instead of the last data burst. `p99` (the p99 tick
+    index, already reduced from the histogram — the megakernel computes
+    it in-kernel and never ships the [4096] rows home) stands in for
+    `hist`."""
     from repro_torch.core.refresh.sim import energy_proxy
-    p, s, d = grid.cells[g]
     spec = grid.spec
-    T = timing_for_density(d, n_banks=spec.n_banks,
-                           n_subarrays=spec.n_subarrays,
-                           n_ranks=spec.n_ranks, n_channels=spec.n_channels)
     dt = spec.dt_ns
+    D, S = len(spec.densities), len(spec.scenarios)
+    g = (np.arange(grid.G, dtype=np.int64) if index is None
+         else np.asarray(index, np.int64))
+    # canonical order is (policy, scenario, density), density innermost
+    d_of, s_of = g % D, (g // D) % S
+    names = [_scenario_name(s) for s in spec.scenarios]
+    reads, writes, hits, misses, refpb, refab, lat_sum, maxlag = (
+        np.asarray(a).astype(np.int64) for a in
+        (reads, writes, hits, misses, refpb, refab, lat_sum, maxlag))
     if core_finish is None:
-        mode, cf = "open", ()
-        makespan = float(last_done) * dt
+        mode, cf = "open", [()] * len(g)
+        makespan = np.asarray(last_done).astype(np.float64) * dt
     else:
         mode = "closed"
         # backends pass [grid.C] rows; keep the scenario's real cores only
-        nc = grid.demands[_scenario_name(s)].n_cores
-        cf = tuple(float(int(f)) * dt for f in list(core_finish)[:nc])
-        makespan = float(max((int(f) for f in list(core_finish)[:nc]),
-                             default=0)) * dt
-    return CellResult(
-        policy=p, scenario=_scenario_name(s), density_gb=d,
-        makespan=makespan, reads_done=int(reads), writes_done=int(writes),
-        avg_read_latency=(dt * int(lat_sum) / int(reads)) if reads else 0.0,
-        p99_read_latency=dt * (_p99_ticks(hist, int(reads))
-                               if p99 is None else int(p99)),
-        refreshes_pb=int(refpb), refreshes_ab=int(refab),
-        row_hits=int(hits), row_misses=int(misses),
-        energy=energy_proxy(T, makespan, int(reads), int(writes),
-                            int(misses), int(refpb), int(refab)),
-        max_abs_lag=int(maxlag), finished=bool(finished),
-        mode=mode, core_finish=cf)
+        fin = np.asarray(core_finish).astype(np.int64)
+        nc = np.array([grid.demands[n].n_cores for n in names])[s_of]
+        # finish ticks are non-negative: 0 in the other columns keeps
+        # the real cores' max
+        real = np.arange(fin.shape[1], dtype=np.int64) < nc[:, None]
+        last = np.where(real, fin, 0).max(axis=1)
+        makespan = last.astype(np.float64) * dt
+        cf = [tuple(row[:n]) for row, n in
+              zip((fin.astype(np.float64) * dt).tolist(), nc.tolist())]
+    some = reads != 0
+    avg = np.where(some, (dt * lat_sum.astype(np.float64))
+                   / np.where(some, reads, 1).astype(np.float64), 0.0)
+    if p99 is None:
+        p99 = [_p99_ticks(h, r) for h, r in zip(hist, reads.tolist())]
+    p99_lat = dt * np.asarray(p99).astype(np.float64)
+    energy = np.empty(len(g), np.float64)
+    for k, d in enumerate(spec.densities):
+        m = d_of == k
+        if m.any():
+            T = timing_for_density(d, n_banks=spec.n_banks,
+                                   n_subarrays=spec.n_subarrays,
+                                   n_ranks=spec.n_ranks,
+                                   n_channels=spec.n_channels)
+            energy[m] = energy_proxy(T, makespan[m], reads[m], writes[m],
+                                     misses[m], refpb[m], refab[m])
+    cells = grid.cells if index is None else [grid.cells[i] for i in g]
+    # positional, in CellResult's field order: a call without keywords
+    # costs a quarter less, a cell at a time
+    return list(map(
+        CellResult, map(itemgetter(0), cells),
+        map(names.__getitem__, s_of.tolist()), map(itemgetter(2), cells),
+        makespan.tolist(), reads.tolist(), writes.tolist(), avg.tolist(),
+        p99_lat.tolist(), refpb.tolist(), refab.tolist(), hits.tolist(),
+        misses.tolist(), energy.tolist(), maxlag.tolist(),
+        np.asarray(finished).astype(bool).tolist(), repeat(mode), cf))
+
+
+def _stat_columns(out: dict) -> dict:
+    """The `[G]` integer stat columns of a tensor backend's output that
+    `_finalize_cells` takes as they are."""
+    return {k: out[k] for k in ("reads", "writes", "hits", "misses",
+                                "refpb", "refab", "lat_sum", "maxlag",
+                                "last_done")}
+
+
+def _finalize(grid: _Grid, g: int, *, reads, writes, hits, misses, refpb,
+              refab, lat_sum, hist, maxlag, last_done, finished,
+              core_finish=None, p99=None) -> CellResult:
+    """Cell `g`'s `_finalize_cells`, from its scalar stats (the scalar
+    backends); `hist` may be None when `p99` is given."""
+    row = lambda v: None if v is None else np.asarray(v)[None]
+    return _finalize_cells(
+        grid, index=[g], reads=row(reads), writes=row(writes),
+        hits=row(hits), misses=row(misses), refpb=row(refpb),
+        refab=row(refab), lat_sum=row(lat_sum), maxlag=row(maxlag),
+        last_done=row(last_done), finished=row(finished),
+        core_finish=row(core_finish), p99=row(p99), hist=row(hist))[0]
 
 
 # --------------------------------------------------------- batched backend
@@ -995,12 +1053,10 @@ def _run_batched(grid: _Grid, arbiter: str = "numpy",
         t += 1
 
     finished = ~active
-    return [_finalize(grid, g, reads=reads[g], writes=writes[g],
-                      hits=hits[g], misses=misses[g], refpb=refpb[g],
-                      refab=refab[g], lat_sum=lat_sum[g], hist=hist[g],
-                      maxlag=maxlag[g], last_done=last_done[g],
-                      finished=finished[g])
-            for g in range(grid.G)]
+    return _finalize_cells(grid, reads=reads, writes=writes, hits=hits,
+                           misses=misses, refpb=refpb, refab=refab,
+                           lat_sum=lat_sum, hist=hist, maxlag=maxlag,
+                           last_done=last_done, finished=finished)
 
 
 # ------------------------------------------------ batched backend (closed)
@@ -1421,12 +1477,11 @@ def _run_batched_closed(grid: _Grid, arbiter: str = "numpy", *,
 
     finished = ~active
     fin = np.where(finish < 0, t, finish)
-    cells = [_finalize(grid, g, reads=reads[g], writes=writes[g],
-                       hits=hits[g], misses=misses[g], refpb=refpb[g],
-                       refab=refab[g], lat_sum=lat_sum[g], hist=hist[g],
-                       maxlag=maxlag[g], last_done=last_done[g],
-                       finished=finished[g], core_finish=fin[g])
-             for g in range(grid.G)]
+    cells = _finalize_cells(grid, reads=reads, writes=writes, hits=hits,
+                            misses=misses, refpb=refpb, refab=refab,
+                            lat_sum=lat_sum, hist=hist, maxlag=maxlag,
+                            last_done=last_done, finished=finished,
+                            core_finish=fin)
     if recs is not None:
         traces = [recs[g].trace(end=int(fin[g].max()))
                   for g in range(grid.G)]
@@ -1985,13 +2040,8 @@ def _run_torch_open(grid: _Grid, arbiter: str = "torch",
     cst = torchbody.open_consts(grid, dev)
     out = torchbody.state_to_numpy(torchbody.run_open(cfg, cst, scores))
     finished = out["n_served"].sum(axis=1) >= grid.n_tot
-    return [_finalize(grid, g, reads=out["reads"][g],
-                      writes=out["writes"][g], hits=out["hits"][g],
-                      misses=out["misses"][g], refpb=out["refpb"][g],
-                      refab=out["refab"][g], lat_sum=out["lat_sum"][g],
-                      hist=out["hist"][g], maxlag=out["maxlag"][g],
-                      last_done=out["last_done"][g], finished=finished[g])
-            for g in range(grid.G)]
+    return _finalize_cells(grid, **_stat_columns(out), hist=out["hist"],
+                           finished=finished)
 
 
 def _run_torch_closed(grid: _Grid, arbiter: str = "torch",
@@ -2015,14 +2065,8 @@ def _run_torch_closed(grid: _Grid, arbiter: str = "torch",
     finished = (out["remaining"] <= 0).all(axis=1)
     t_end = int(out["t"])
     fin = np.where(out["finish"] < 0, t_end, out["finish"])
-    return [_finalize(grid, g, reads=out["reads"][g],
-                      writes=out["writes"][g], hits=out["hits"][g],
-                      misses=out["misses"][g], refpb=out["refpb"][g],
-                      refab=out["refab"][g], lat_sum=out["lat_sum"][g],
-                      hist=out["hist"][g], maxlag=out["maxlag"][g],
-                      last_done=out["last_done"][g], finished=finished[g],
-                      core_finish=fin[g])
-            for g in range(grid.G)]
+    return _finalize_cells(grid, **_stat_columns(out), hist=out["hist"],
+                           finished=finished, core_finish=fin)
 
 
 # ----------------------------------------------------- megakernel backend
@@ -2037,24 +2081,17 @@ def _run_mega(grid: _Grid, n_shards: int = 1, device=None,
     With CPU tensors the same host layout runs the plain version
     (`sweep.torchbody`) instead. Bit-identical to every other backend.
     `seconds`, when given, receives the wall seconds of the device run
-    (``"run"``: pack, upload, launch, download) and of `_finalize`: the
-    durations of the spans ``sweep.run`` and ``sweep.finalize``."""
+    (``"run"``: pack, upload, launch, download) and of `_finalize_cells`:
+    the durations of the spans ``sweep.run`` and ``sweep.finalize``."""
     _check_traced_guards(grid, backend="mega")
     from repro_torch.kernels.sweep_megakernel import run_mega
 
     with trace.timed("sweep.run") as run:
         out = run_mega(grid, n_shards=n_shards, device=device)
     with trace.timed("sweep.finalize") as fin:
-        cf = out["core_finish"]
-        cells = [_finalize(grid, g, reads=out["reads"][g],
-                           writes=out["writes"][g], hits=out["hits"][g],
-                           misses=out["misses"][g], refpb=out["refpb"][g],
-                           refab=out["refab"][g], lat_sum=out["lat_sum"][g],
-                           hist=None, maxlag=out["maxlag"][g],
-                           last_done=out["last_done"][g],
-                           finished=out["finished"][g], p99=out["p99"][g],
-                           core_finish=None if cf is None else cf[g])
-                 for g in range(grid.G)]
+        cells = _finalize_cells(grid, **_stat_columns(out),
+                                finished=out["finished"], p99=out["p99"],
+                                core_finish=out["core_finish"])
     if seconds is not None:
         seconds.update(run=run.seconds, finalize=fin.seconds)
     return cells

@@ -72,7 +72,7 @@ SCORE_BITS = WRITE_SHIFT + 1
  MP_TURN, MP_RTR, MP_SARP_PEN, MP_MLP, MP_HORIZON, MP_PAD) = range(20)
 MEGA_NPARAM = 20
 
-#: per-cell integer stat columns (the exact inputs `engine._finalize`
+#: per-cell integer stat columns (the exact inputs `engine._finalize_cells`
 #: needs, plus the in-kernel p99 tick index and the finished flag)
 (MS_READS, MS_WRITES, MS_HITS, MS_MISSES, MS_REFPB, MS_REFAB, MS_LATSUM,
  MS_MAXLAG, MS_LASTDONE, MS_P99, MS_FINISHED) = range(11)
