@@ -412,7 +412,7 @@ def _shard_probe(n_scen: int = 24, device=None) -> dict:
     dev = torch.device("cuda" if device is None else device)
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     ways = [w for w in (1, 2, 4) if w <= n_dev]
-    grid = _Grid(mega_ladder_spec(n_scen), stack_streams=False)
+    grid = _Grid(mega_ladder_spec(n_scen))
     out = {"cells": grid.G, "devices": n_dev, "ways_run": ways,
            "wall_clock_s": {}, "bit_identical": True}
     base = None
@@ -453,7 +453,7 @@ def sweep_mega(fast: bool = False, device=None) -> dict:
     for i, (label, n_scen) in enumerate(rungs):
         spec = mega_ladder_spec(n_scen)
         cells = len(spec.cells())
-        grid = _Grid(spec, stack_streams=False)
+        grid = _Grid(spec)
         t0 = _clock(device)
         run_mega(grid, device=device)
         mega_s = time.perf_counter() - t0

@@ -286,12 +286,12 @@ def main():
                cs.open_conformance_specs(SweepSpec, policies)[0][1]),
               ("open_subarray_s4",
                cs.open_conformance_specs(SweepSpec, policies)[3][1])]
-    timed = [(name, spec, _Grid(spec, stack_streams=False))
+    timed = [(name, spec, _Grid(spec))
              for name, spec in shapes(policies)]
     try:
         for gname, spec in checks:
             cfg, _, *inputs = mega.device_inputs(
-                _Grid(spec, stack_streams=False), "cuda")
+                _Grid(spec), "cuda")
             plain = (mega._plain_closed_cells if cfg.closed
                      else mega._plain_open_cells)(cfg, *inputs)
             for name, lib in libs.items():

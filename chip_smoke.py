@@ -483,7 +483,7 @@ def check_wide(torch, sweep, SweepSpec):
         spec = SweepSpec(policies=ONE_PER_KIND, scenarios=(scn,),
                          densities=(32,), reqs=reqs, seed=4, mode=mode,
                          n_banks=16, n_ranks=4, n_channels=2)
-        grid = _Grid(spec, stack_streams=False)
+        grid = _Grid(spec)
         cfg, _, params, scn_t, streams, counts = mega.device_inputs(
             grid, "cuda")
         if mode == "closed":
@@ -666,7 +666,7 @@ def time_megakernel(torch, spec):
     two results must be equal."""
     from repro_torch.core.sweep.engine import _Grid
     from repro_torch.kernels import sweep_megakernel as mega
-    grid = _Grid(spec, stack_streams=False)
+    grid = _Grid(spec)
     cfg, _, params, scn, streams, nreq = mega.device_inputs(grid, "cuda")
     out = {}
 
@@ -810,7 +810,7 @@ def time_open_megakernel(torch, spec):
     inputs; the two results must be equal."""
     from repro_torch.core.sweep.engine import _Grid
     from repro_torch.kernels import sweep_megakernel as mega
-    grid = _Grid(spec, stack_streams=False)
+    grid = _Grid(spec)
     cfg, _, params, scn, streams, npb = mega.device_inputs(grid, "cuda")
     out = {}
 

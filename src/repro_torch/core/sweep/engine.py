@@ -14,19 +14,21 @@ CUDA kernel (`repro_torch.kernels.sweep_arbiter`), and the whole tick
 loop of each mode has one (`repro_torch.kernels.sweep_megakernel`).
 
 This module is the PyTorch/CUDA port's copy of the JAX package's
-`repro/core/sweep/engine.py`: the host side (`SweepSpec`, `_Grid`, the
-numpy `batched` and `scalar` backends of both modes) is carried over
-unchanged and pinned equal to the original by the parity tests;
-`_finalize_cells` turns a whole grid's stat columns into its cells in one
-vectorized pass, for every backend, and is held bit for bit to the
-original's per-cell `_finalize`; the traced backends are replaced by
-`backend="torch"` (a host loop over `sweep.torchbody`) and
-`backend="mega"` (the CUDA tick-loop kernels, one per mode). Both modes
-run on every backend.
+`repro/core/sweep/engine.py`: the host side (`SweepSpec`, the numpy
+`batched` and `scalar` backends of both modes) is carried over unchanged
+and pinned equal to the original by the parity tests; `_Grid` keeps only
+the original's per-scenario demand layout and is held column for column
+to both of its layouts; `_finalize_cells` turns a whole grid's stat
+columns into its cells in one vectorized pass, for every backend, and is
+held bit for bit to the original's per-cell `_finalize`; the traced
+backends are replaced by `backend="torch"` (a host loop over
+`sweep.torchbody`) and `backend="mega"` (the CUDA tick-loop kernels, one
+per mode). Both modes run on every backend.
 
 Each call records the spans (`repro_torch.common.trace`) ``sweep`` ⊃
-``sweep.grid`` ⊃ (``demand`` for each named scenario, ``sweep.grid.cells``),
-and on `mega` ``sweep.run`` and ``sweep.finalize``, whose durations are
+``sweep.grid`` ⊃ (``demand`` for each named scenario, ``sweep.grid.cells``:
+the per-(policy, density) constants and their gather to the cells), and
+on `mega` ``sweep.run`` and ``sweep.finalize``, whose durations are
 also `SweepResult.seconds`.
 
 State is stacked over GLOBAL banks: every cell carries a full
@@ -193,15 +195,18 @@ class TickTiming:
     def from_density(cls, density_gb: int, dt_ns: float = 6.0,
                      n_banks: int = 8, n_subarrays: int = 8,
                      n_ranks: int = 1, n_channels: int = 1) -> "TickTiming":
-        T = timing_for_density(density_gb, n_banks=n_banks,
-                               n_subarrays=n_subarrays, n_ranks=n_ranks,
-                               n_channels=n_channels)
+        return cls.from_dram(timing_for_density(
+            density_gb, n_banks=n_banks, n_subarrays=n_subarrays,
+            n_ranks=n_ranks, n_channels=n_channels), dt_ns)
 
+    @classmethod
+    def from_dram(cls, T, dt_ns: float = 6.0) -> "TickTiming":
+        """`T` (a `DramTiming`) quantized to ticks of `dt_ns`."""
         def tk(ns: float) -> int:
             return max(1, int(ns / dt_ns + 0.5))
 
         refi = tk(T.tREFI)
-        return cls(density_gb=density_gb, dt_ns=dt_ns, REFI=refi,
+        return cls(density_gb=T.density_gb, dt_ns=dt_ns, REFI=refi,
                    REFI_PB=max(1, refi // T.n_banks_total),
                    RFC_PB=tk(T.tRFC_pb),
                    RFC_AB=tk(T.tRFC_ab), TRP=tk(T.tRP), HIT=tk(T.row_hit),
@@ -388,16 +393,30 @@ def _scenario_name(s) -> str:
 
 
 # ------------------------------------------------------------------ grid
-class _Grid:
-    """Spec unpacked into stacked arrays + per-cell constants.
+#: the `TickTiming` columns every cell carries, taken from its density
+_TICK_COLS = ("REFI", "REFI_PB", "RFC_PB", "RFC_AB", "TRP", "HIT", "MISS",
+              "WR", "TURN", "RTR", "SARP_PEN", "budget")
 
-    ``stack_streams=False`` (the megakernel layout) skips the per-cell
-    ``[G, ...]`` demand-stream stacking and keeps one stream plane per
-    *scenario* (``scn_*``, indexed by ``scn_of_cell``) instead — every
-    cell of a scenario replays the same stream, so a 10^5-cell grid needs
-    only ``n_scenarios`` stream copies; the fused kernel gathers its
-    tile's plane via scalar prefetch. Per-cell constants and totals are
-    identical in both layouts."""
+
+class _Grid:
+    """Spec unpacked into per-cell constants and per-scenario demand.
+
+    The one place that knows the canonical cell order (policy, scenario,
+    density; density innermost): `pol_of`, `scn_of_cell` and `den_of`
+    are a cell's policy position, its index in `scn_names` (the keys of
+    `demands` / `traces`) and its density's last axis position. Timing
+    is built once a density (`timing`, and the `DramTiming` it quantizes
+    in `dram`), policies once a (policy, density) pair; every `[G]`,
+    `[G, B]` and `[G, R]` column is one gather from those tables.
+
+    Demand is kept once a scenario, `scn_*` planes (closed: per-core
+    streams `[NS, C, N]`, `scn_nreq [NS, C]`; open: per-bank arrival
+    FIFOs `[NS, B, L]`, `scn_npb [NS, B]`): a 10^5-cell grid carries
+    `n_scenarios` stream copies, and a backend that wants its cells'
+    rows gathers them with ``plane[grid.scn_of_cell]``.
+
+    `stack_streams` is accepted and ignored: a caller outside the
+    package still passes it."""
 
     def __init__(self, spec: SweepSpec, stack_streams: bool = True):
         if not (spec.policies and spec.scenarios and spec.densities):
@@ -420,192 +439,177 @@ class _Grid:
         self.chan_of_t = tuple(int(x) for x in self.chan_of_b)
         self.closed = spec.mode == "closed"
 
-        split = None
         if self.closed:
-            demands = {}
+            self.demands = {}
             for s in spec.scenarios:
                 if isinstance(s, Trace):
                     raise ValueError(
                         f"scenario {s.name!r} is an open-loop Trace but the "
                         "spec has mode='closed'; pass a closed scenario "
                         "name or a ClosedDemand")
-                dem = s if isinstance(s, ClosedDemand) else \
-                    make_closed_demand(s, B, spec.n_subarrays,
-                                       spec.reqs, spec.seed, spec.dt_ns)
-                demands[_scenario_name(s)] = dem
-            self.demands = demands
+                self.demands[_scenario_name(s)] = (
+                    s if isinstance(s, ClosedDemand) else
+                    make_closed_demand(s, B, spec.n_subarrays, spec.reqs,
+                                       spec.seed, spec.dt_ns))
+            self.scn_names = list(self.demands)
+            self._closed_planes(list(self.demands.values()))
         else:
-            traces = {}
+            self.traces = {}
             for s in spec.scenarios:
                 if isinstance(s, ClosedDemand):
                     raise ValueError(
                         f"scenario {s.name!r} is a closed-loop ClosedDemand "
                         "but the spec has mode='open'; pass "
                         "SweepSpec(mode='closed')")
-                tr = s if isinstance(s, Trace) else make_trace(
-                    s, B, spec.n_subarrays, spec.reqs, spec.seed)
-                traces[_scenario_name(s)] = tr
-            self.traces = traces
+                self.traces[_scenario_name(s)] = (
+                    s if isinstance(s, Trace) else
+                    make_trace(s, B, spec.n_subarrays, spec.reqs, spec.seed))
+            self.scn_names = list(self.traces)
+            self._open_planes(list(self.traces.values()))
 
-            # per-(scenario, bank) FIFO split, padded to the global max len
-            split = {}
-            L = 1
-            for name, tr in traces.items():
-                per_bank = []
-                for b in range(B):
-                    m = tr.bank == b
-                    per_bank.append((tr.arrive[m], tr.row[m], tr.sub[m],
-                                     tr.is_write[m]))
-                    L = max(L, int(m.sum()))
-                split[name] = per_bank
-            self.L = L
-            if stack_streams:
-                self.q_arrive = np.full((G, B, L), _PAD_ARRIVE, np.int32)
-                self.q_row = np.zeros((G, B, L), np.int32)
-                self.q_sub = np.zeros((G, B, L), np.int32)
-                self.q_write = np.zeros((G, B, L), bool)
-            else:
-                NS = len(traces)
-                self.scn_qa = np.full((NS, B, L), _PAD_ARRIVE, np.int32)
-                self.scn_qr = np.zeros((NS, B, L), np.int32)
-                self.scn_qs = np.zeros((NS, B, L), np.int32)
-                self.scn_qw = np.zeros((NS, B, L), bool)
-                self.scn_npb = np.zeros((NS, B), np.int32)
-                for i, name in enumerate(traces):
-                    for b, (arr, row, sub, isw) in enumerate(split[name]):
-                        n = len(arr)
-                        self.scn_npb[i, b] = n
-                        self.scn_qa[i, b, :n] = arr
-                        self.scn_qr[i, b, :n] = row
-                        self.scn_qs[i, b, :n] = sub
-                        self.scn_qw[i, b, :n] = isw
-            self.n_per_bank = np.zeros((G, B), np.int32)
-
-        self.timing = {d: TickTiming.from_density(
-            d, spec.dt_ns, spec.n_banks, spec.n_subarrays, spec.n_ranks,
-            spec.n_channels)
-            for d in spec.densities}
-
-        # per-cell constants
-        ints = lambda: np.zeros(G, np.int32)
-        self.kind = ints()
-        self.level_ab = np.zeros(G, bool)
-        self.sarp = np.zeros(G, bool)
-        self.hra = np.zeros(G, bool)      # HiRA hidden-row-activation trait
-        self.wrp = np.zeros(G, bool)
-        self.urgent_at = np.ones(G, np.int32)
-        self.budget = ints()
-        for f in ("REFI", "RFC_PB", "RFC_AB", "TRP", "HIT", "MISS", "WR",
-                  "TURN", "RTR", "SARP_PEN"):
-            setattr(self, f, ints())
-        self.phase = np.zeros((G, B), np.int32)
-        # per-(cell, global rank) all-bank debt accrual phase: rank r's
-        # debt lands r * tREFI/R after rank 0's (cross-rank staggering)
-        self.rank_phase = np.zeros((G, self.R), np.int32)
-        self.customs: list[tuple[int, object]] = []
-
-        if self.closed:
-            # stacked per-core streams, padded to the global (C, N) max
-            C = max(dem.n_cores for dem in self.demands.values())
-            N = max(int(dem.is_write.shape[1])
-                    for dem in self.demands.values())
-            self.C, self.N = C, N
-            self.K = max(dem.mlp for dem in self.demands.values())
-            if stack_streams:
-                self.s_write = np.zeros((G, C, N), bool)
-                self.s_bank = np.zeros((G, C, N), np.int32)
-                self.s_row = np.zeros((G, C, N), np.int32)
-                self.s_sub = np.zeros((G, C, N), np.int32)
-                self.s_think = np.zeros((G, C, N), np.int32)
-            else:
-                NS = len(self.demands)
-                self.scn_write = np.zeros((NS, C, N), bool)
-                self.scn_bank = np.zeros((NS, C, N), np.int32)
-                self.scn_row = np.zeros((NS, C, N), np.int32)
-                self.scn_sub = np.zeros((NS, C, N), np.int32)
-                self.scn_think = np.zeros((NS, C, N), np.int32)
-                self.scn_nreq = np.zeros((NS, C), np.int32)
-                for i, dem in enumerate(self.demands.values()):
-                    c, n = dem.is_write.shape
-                    self.scn_write[i, :c, :n] = dem.is_write
-                    self.scn_bank[i, :c, :n] = dem.bank
-                    self.scn_row[i, :c, :n] = dem.row
-                    self.scn_sub[i, :c, :n] = dem.sub
-                    self.scn_think[i, :c, :n] = dem.think
-                    self.scn_nreq[i, :c] = n
-            self.n_req_c = np.zeros((G, C), np.int32)
-            self.mlp_g = np.zeros(G, np.int32)
-        # scenario index of every cell (megakernel tiles gather their
-        # scenario's stream plane through this; cheap in both layouts)
-        scn_names = list(self.demands) if self.closed else list(traces)
-        scn_index = {n: i for i, n in enumerate(scn_names)}
+        # cell ids by position in the canonical order; a scenario maps
+        # through its name and a density through its value, once an entry
+        pol, scn, den = np.indices(spec.shape, dtype=np.int32).reshape(3, G)
+        s_id = {n: i for i, n in enumerate(self.scn_names)}
+        d_id = {d: k for k, d in enumerate(spec.densities)}
+        self.pol_of = pol
         self.scn_of_cell = np.array(
-            [scn_index[_scenario_name(s)] for _, s, _ in self.cells],
-            dtype=np.int32)
+            [s_id[_scenario_name(s)] for s in spec.scenarios], np.int32)[scn]
+        self.den_of = np.array([d_id[d] for d in spec.densities],
+                               np.int32)[den]
+
+        self.dram = {d: timing_for_density(
+            d, n_banks=spec.n_banks, n_subarrays=spec.n_subarrays,
+            n_ranks=spec.n_ranks, n_channels=spec.n_channels)
+            for d in spec.densities}
+        self.timing = {d: TickTiming.from_dram(T, spec.dt_ns)
+                       for d, T in self.dram.items()}
 
         with trace.span("sweep.grid.cells"):
-            for g, (p, s, d) in enumerate(self.cells):
-                tk = self.timing[d]
-                pol = resolve_policy(p)
-                kind, params = classify(pol, tk.budget)
-                self.kind[g] = kind
-                self.level_ab[g] = (not pol.ideal) and pol.level == "ab"
-                self.sarp[g] = pol.sarp
-                self.hra[g] = bool(getattr(pol, "hra", False))
-                self.wrp[g] = params.get("wrp", False)
-                self.urgent_at[g] = params.get("urgent_at", 1)
-                self.budget[g] = tk.budget
-                for f in ("REFI", "RFC_PB", "RFC_AB", "TRP", "HIT", "MISS",
-                          "WR", "TURN", "RTR", "SARP_PEN"):
-                    getattr(self, f)[g] = getattr(tk, f)
-                self.phase[g] = np.arange(B, dtype=np.int32) * tk.REFI_PB
-                self.rank_phase[g] = (np.arange(self.R, dtype=np.int32)
-                                      * (tk.REFI // self.R))
-                if kind == KIND_CUSTOM:
-                    self.customs.append((g, pol))
-                if self.closed:
-                    dem = self.demands[_scenario_name(s)]
-                    c, n = dem.is_write.shape
-                    if stack_streams:
-                        self.s_write[g, :c, :n] = dem.is_write
-                        self.s_bank[g, :c, :n] = dem.bank
-                        self.s_row[g, :c, :n] = dem.row
-                        self.s_sub[g, :c, :n] = dem.sub
-                        self.s_think[g, :c, :n] = dem.think
-                    self.n_req_c[g, :c] = n
-                    self.mlp_g[g] = dem.mlp
-                elif stack_streams:
-                    for b, (arr, row, sub, isw) in enumerate(
-                            split[_scenario_name(s)]):
-                        n = len(arr)
-                        self.n_per_bank[g, b] = n
-                        self.q_arrive[g, b, :n] = arr
-                        self.q_row[g, b, :n] = row
-                        self.q_sub[g, b, :n] = sub
-                        self.q_write[g, b, :n] = isw
-                else:
-                    self.n_per_bank[g] = self.scn_npb[self.scn_of_cell[g]]
-
-        self.has_stag = bool((self.kind == KIND_STAG).any())
-        self.has_hra = bool(self.hra.any())
+            self._cell_constants()
+            if self.closed:
+                self.n_req_c = self.scn_nreq[self.scn_of_cell]
+                self.mlp_g = self.scn_mlp[self.scn_of_cell]
+                self.n_tot = self.n_req_c.sum(axis=1)
+            else:
+                self.n_per_bank = self.scn_npb[self.scn_of_cell]
+                self.n_tot = self.n_per_bank.sum(axis=1)
 
         svc = int(self.MISS.max() + self.WR.max() + self.TURN.max() + 2)
         if self.closed:
-            self.n_tot = self.n_req_c.sum(axis=1)
             # ring queues: occupancy is bounded by outstanding reads
             # (C * mlp) + buffered writes (wbuf_cap)
             need = self.C * int(self.K) + spec.wbuf_cap + 1
             self.LQ = 1 << max(1, (need - 1).bit_length())
-            s_think = self.s_think if stack_streams else self.scn_think
-            think_span = int(s_think.sum(axis=2).max())
+            think_span = int(self.scn_think.sum(axis=2).max())
             auto = (think_span + 4 * int(self.n_tot.max()) * svc
                     + 8 * int(self.RFC_AB.max()) + 64)
         else:
-            self.n_tot = self.n_per_bank.sum(axis=1)
-            max_arrive = max(int(tr.arrive[-1]) for tr in traces.values())
+            max_arrive = max(int(tr.arrive[-1])
+                             for tr in self.traces.values())
             auto = (max_arrive + 4 * int(self.n_tot.max()) * svc
                     + 8 * int(self.RFC_AB.max()) + 64)
         self.horizon = spec.horizon if spec.horizon else min(auto, 1 << 28)
+
+    def _closed_planes(self, dems: list) -> None:
+        """Each scenario's per-core streams, padded to the grid's (C, N)
+        maximum."""
+        NS = len(dems)
+        self.C = C = max(dem.n_cores for dem in dems)
+        self.N = N = max(int(dem.is_write.shape[1]) for dem in dems)
+        self.K = max(dem.mlp for dem in dems)
+        self.scn_write = np.zeros((NS, C, N), bool)
+        self.scn_bank = np.zeros((NS, C, N), np.int32)
+        self.scn_row = np.zeros((NS, C, N), np.int32)
+        self.scn_sub = np.zeros((NS, C, N), np.int32)
+        self.scn_think = np.zeros((NS, C, N), np.int32)
+        self.scn_nreq = np.zeros((NS, C), np.int32)
+        self.scn_mlp = np.array([dem.mlp for dem in dems], np.int32)
+        for i, dem in enumerate(dems):
+            c, n = dem.is_write.shape
+            self.scn_write[i, :c, :n] = dem.is_write
+            self.scn_bank[i, :c, :n] = dem.bank
+            self.scn_row[i, :c, :n] = dem.row
+            self.scn_sub[i, :c, :n] = dem.sub
+            self.scn_think[i, :c, :n] = dem.think
+            self.scn_nreq[i, :c] = n
+
+    def _open_planes(self, traces: list) -> None:
+        """Each scenario's per-bank arrival FIFOs, padded to the longest."""
+        NS, B = len(traces), self.B
+        masks = [[tr.bank == b for b in range(B)] for tr in traces]
+        self.scn_npb = np.array([[m.sum() for m in ms] for ms in masks],
+                                np.int32).reshape(NS, B)
+        self.L = L = max(1, int(self.scn_npb.max()))
+        self.scn_qa = np.full((NS, B, L), _PAD_ARRIVE, np.int32)
+        self.scn_qr = np.zeros((NS, B, L), np.int32)
+        self.scn_qs = np.zeros((NS, B, L), np.int32)
+        self.scn_qw = np.zeros((NS, B, L), bool)
+        for i, (tr, ms) in enumerate(zip(traces, masks)):
+            for b, m in enumerate(ms):
+                n = self.scn_npb[i, b]
+                self.scn_qa[i, b, :n] = tr.arrive[m]
+                self.scn_qr[i, b, :n] = tr.row[m]
+                self.scn_qs[i, b, :n] = tr.sub[m]
+                self.scn_qw[i, b, :n] = tr.is_write[m]
+
+    def cell_streams(self) -> dict:
+        """Each cell's demand gathered from its scenario's planes, as flat
+        per-cell rows: open ``qa qr qs qw`` ``[G*B, L]``, closed ``sw sb
+        sr ssub sth`` ``[G*C, N]``."""
+        if self.closed:
+            planes = dict(sw=self.scn_write, sb=self.scn_bank,
+                          sr=self.scn_row, ssub=self.scn_sub,
+                          sth=self.scn_think)
+        else:
+            planes = dict(qa=self.scn_qa, qr=self.scn_qr, qs=self.scn_qs,
+                          qw=self.scn_qw)
+        return {k: v[self.scn_of_cell].reshape(-1, v.shape[-1])
+                for k, v in planes.items()}
+
+    def _cell_constants(self) -> None:
+        """Policy constants in `[P, D]` tables (one `resolve_policy` a
+        policy, one `classify` a (policy, density) pair) and timing in
+        `[D]` tables, then every per-cell column by one gather. A
+        `KIND_CUSTOM` cell gets an instance of its own in `customs`: the
+        batched backend drives it, state and all, one cell at a time."""
+        spec = self.spec
+        P, _, D = spec.shape
+        tks = [self.timing[d] for d in spec.densities]      # by den_of
+        tick = {f: np.array([getattr(tk, f) for tk in tks], np.int32)
+                for f in _TICK_COLS}
+        kind = np.zeros((P, D), np.int32)
+        urgent_at = np.ones((P, D), np.int32)
+        trait = {f: np.zeros((P, D), bool)
+                 for f in ("level_ab", "sarp", "hra", "wrp")}
+        for i, p in enumerate(spec.policies):
+            pol = resolve_policy(p)
+            for k in range(D):
+                kind[i, k], params = classify(pol, tks[k].budget)
+                urgent_at[i, k] = params.get("urgent_at", 1)
+                trait["level_ab"][i, k] = (not pol.ideal) and pol.level == "ab"
+                trait["sarp"][i, k] = pol.sarp
+                trait["hra"][i, k] = bool(getattr(pol, "hra", False))
+                trait["wrp"][i, k] = params.get("wrp", False)
+
+        pd = (self.pol_of, self.den_of)
+        self.kind, self.urgent_at = kind[pd], urgent_at[pd]
+        for f, table in trait.items():
+            setattr(self, f, table[pd])
+        for f, col in tick.items():
+            setattr(self, f, col[self.den_of])
+        # per-bank refresh phases, and per-(cell, global rank) all-bank
+        # debt accrual phases: rank r's debt lands r * tREFI/R after
+        # rank 0's (cross-rank staggering)
+        self.phase = (tick["REFI_PB"][:, None]
+                      * np.arange(self.B, dtype=np.int32))[self.den_of]
+        self.rank_phase = ((tick["REFI"] // self.R)[:, None]
+                           * np.arange(self.R, dtype=np.int32))[self.den_of]
+        self.customs: list[tuple[int, object]] = [
+            (g, resolve_policy(spec.policies[self.pol_of[g]]))
+            for g in np.flatnonzero(self.kind == KIND_CUSTOM).tolist()]
+        self.has_stag = bool((self.kind == KIND_STAG).any())
+        self.has_hra = bool(self.hra.any())
 
 
 # ----------------------------------------------------------- finalization
@@ -656,12 +660,9 @@ def _finalize_cells(grid: _Grid, *, reads, writes, hits, misses, refpb,
     from repro_torch.core.refresh.sim import energy_proxy
     spec = grid.spec
     dt = spec.dt_ns
-    D, S = len(spec.densities), len(spec.scenarios)
     g = (np.arange(grid.G, dtype=np.int64) if index is None
          else np.asarray(index, np.int64))
-    # canonical order is (policy, scenario, density), density innermost
-    d_of, s_of = g % D, (g // D) % S
-    names = [_scenario_name(s) for s in spec.scenarios]
+    d_of, s_of = grid.den_of[g], grid.scn_of_cell[g]
     reads, writes, hits, misses, refpb, refab, lat_sum, maxlag = (
         np.asarray(a).astype(np.int64) for a in
         (reads, writes, hits, misses, refpb, refab, lat_sum, maxlag))
@@ -672,7 +673,7 @@ def _finalize_cells(grid: _Grid, *, reads, writes, hits, misses, refpb,
         mode = "closed"
         # backends pass [grid.C] rows; keep the scenario's real cores only
         fin = np.asarray(core_finish).astype(np.int64)
-        nc = np.array([grid.demands[n].n_cores for n in names])[s_of]
+        nc = np.array([dem.n_cores for dem in grid.demands.values()])[s_of]
         # finish ticks are non-negative: 0 in the other columns keeps
         # the real cores' max
         real = np.arange(fin.shape[1], dtype=np.int64) < nc[:, None]
@@ -687,21 +688,18 @@ def _finalize_cells(grid: _Grid, *, reads, writes, hits, misses, refpb,
         p99 = [_p99_ticks(h, r) for h, r in zip(hist, reads.tolist())]
     p99_lat = dt * np.asarray(p99).astype(np.float64)
     energy = np.empty(len(g), np.float64)
-    for k, d in enumerate(spec.densities):
+    for k in np.unique(d_of).tolist():
         m = d_of == k
-        if m.any():
-            T = timing_for_density(d, n_banks=spec.n_banks,
-                                   n_subarrays=spec.n_subarrays,
-                                   n_ranks=spec.n_ranks,
-                                   n_channels=spec.n_channels)
-            energy[m] = energy_proxy(T, makespan[m], reads[m], writes[m],
-                                     misses[m], refpb[m], refab[m])
+        energy[m] = energy_proxy(grid.dram[spec.densities[k]], makespan[m],
+                                 reads[m], writes[m], misses[m], refpb[m],
+                                 refab[m])
     cells = grid.cells if index is None else [grid.cells[i] for i in g]
     # positional, in CellResult's field order: a call without keywords
     # costs a quarter less, a cell at a time
     return list(map(
         CellResult, map(itemgetter(0), cells),
-        map(names.__getitem__, s_of.tolist()), map(itemgetter(2), cells),
+        map(grid.scn_names.__getitem__, s_of.tolist()),
+        map(itemgetter(2), cells),
         makespan.tolist(), reads.tolist(), writes.tolist(), avg.tolist(),
         p99_lat.tolist(), refpb.tolist(), refab.tolist(), hits.tolist(),
         misses.tolist(), energy.tolist(), maxlag.tolist(),
@@ -746,11 +744,9 @@ def _run_batched(grid: _Grid, arbiter: str = "numpy",
     elif arbiter != "numpy":
         raise ValueError(f"unknown arbiter {arbiter!r}")
 
-    # flat [G*B, L] views for single-op queue gathers
-    qa = grid.q_arrive.reshape(G * B, L)
-    qr = grid.q_row.reshape(G * B, L)
-    qs = grid.q_sub.reshape(G * B, L)
-    qw = grid.q_write.reshape(G * B, L)
+    # each cell's arrival FIFOs as flat [G*B, L] planes for single-op
+    # queue gathers
+    qa, qr, qs, qw = grid.cell_streams().values()
     n_pb_flat = grid.n_per_bank.reshape(G * B)
 
     # machine state, stacked [G, B]; refresh occupancy and open rows are
@@ -777,12 +773,11 @@ def _run_batched(grid: _Grid, arbiter: str = "numpy",
     has_ab = bool(grid.level_ab.any())
 
     # incrementally-maintained next-arrival and head-of-queue mirrors
-    next_arrive = grid.q_arrive[:, :, 0].copy()
-    next_w = grid.q_write[:, :, 0].copy()
-    h_arr = grid.q_arrive[:, :, 0].copy()
-    h_row = grid.q_row[:, :, 0].copy()
-    h_sub = grid.q_sub[:, :, 0].copy()
-    h_w = grid.q_write[:, :, 0].copy()
+    # (copies: qa[:, 0] is a strided view, and these are written)
+    next_arrive = qa[:, 0].reshape(G, B).copy()
+    next_w = qw[:, 0].reshape(G, B).copy()
+    h_arr, h_row = next_arrive.copy(), qr[:, 0].reshape(G, B).copy()
+    h_sub, h_w = qs[:, 0].reshape(G, B).copy(), next_w.copy()
 
     # stats
     reads = np.zeros(G, np.int64)
@@ -1087,12 +1082,8 @@ def _run_batched_closed(grid: _Grid, arbiter: str = "numpy", *,
         from repro_torch.core.commands.trace import CmdRecorder, tick_meta
         recs = []
         for (p, s, d) in grid.cells:
-            T = timing_for_density(d, n_banks=spec.n_banks,
-                                   n_subarrays=spec.n_subarrays,
-                                   n_ranks=spec.n_ranks,
-                                   n_channels=spec.n_channels)
             recs.append(CmdRecorder(tick_meta(
-                T, resolve_policy(p), spec.dt_ns,
+                grid.dram[d], resolve_policy(p), spec.dt_ns,
                 scenario=_scenario_name(s),
                 wbuf=(spec.wbuf_cap, spec.wbuf_hi, spec.wbuf_lo))))
 
@@ -1103,12 +1094,8 @@ def _run_batched_closed(grid: _Grid, arbiter: str = "numpy", *,
     elif arbiter != "numpy":
         raise ValueError(f"unknown arbiter {arbiter!r}")
 
-    # flat [G*C, N] stream views for single-op gathers
-    sw = grid.s_write.reshape(G * C, N)
-    sb = grid.s_bank.reshape(G * C, N)
-    sr = grid.s_row.reshape(G * C, N)
-    ssub = grid.s_sub.reshape(G * C, N)
-    sth = grid.s_think.reshape(G * C, N)
+    # each cell's streams as flat [G*C, N] planes for single-op gathers
+    sw, sb, sr, ssub, sth = grid.cell_streams().values()
     n_req = grid.n_req_c
     mlp_col = grid.mlp_g[:, None]
 
@@ -1504,13 +1491,14 @@ def _run_scalar_cell(grid: _Grid, g: int) -> CellResult:
     hra = bool(getattr(pol, "hra", False))
     budget = tk.budget
 
+    i = grid.scn_of_cell[g]
     q = []
     for b in range(B):
-        n = int(grid.n_per_bank[g, b])
-        q.append(list(zip(grid.q_arrive[g, b, :n].tolist(),
-                          grid.q_row[g, b, :n].tolist(),
-                          grid.q_sub[g, b, :n].tolist(),
-                          grid.q_write[g, b, :n].tolist())))
+        n = int(grid.scn_npb[i, b])
+        q.append(list(zip(grid.scn_qa[i, b, :n].tolist(),
+                          grid.scn_qr[i, b, :n].tolist(),
+                          grid.scn_qs[i, b, :n].tolist(),
+                          grid.scn_qw[i, b, :n].tolist())))
     total = sum(len(x) for x in q)
     phase = [b * tk.REFI_PB for b in range(B)]
     rank_phase = [gr * (tk.REFI // R) for gr in range(R)]
@@ -1736,10 +1724,11 @@ def _run_scalar_cell_closed(grid: _Grid, g: int) -> CellResult:
     budget = tk.budget
     dem = grid.demands[_scenario_name(s)]
     C, mlp = dem.n_cores, dem.mlp
-    sw = grid.s_write[g]
-    sb, sr = grid.s_bank[g], grid.s_row[g]
-    ss, sth = grid.s_sub[g], grid.s_think[g]
-    n_req = grid.n_req_c[g].tolist()
+    i = grid.scn_of_cell[g]
+    sw = grid.scn_write[i]
+    sb, sr = grid.scn_bank[i], grid.scn_row[i]
+    ss, sth = grid.scn_sub[i], grid.scn_think[i]
+    n_req = grid.scn_nreq[i].tolist()
     phase = [b * tk.REFI_PB for b in range(B)]
     rank_phase = [gr * (tk.REFI // R) for gr in range(R)]
 
@@ -2158,7 +2147,7 @@ def _sweep(spec: SweepSpec, backend: str, arbiter: Optional[str], *,
             "one device (use backend='mega')")
     if backend == "mega":
         with trace.timed("sweep.grid") as g:
-            grid = _Grid(spec, stack_streams=False)
+            grid = _Grid(spec)
         secs = {"grid": g.seconds}
         cells = _run_mega(grid, n_shards=n_shards, device=device,
                           seconds=secs)

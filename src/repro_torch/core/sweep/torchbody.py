@@ -127,29 +127,18 @@ def consts_from_numpy(cst: dict, device="cpu") -> dict:
 
 
 def open_consts(grid, device="cpu") -> dict:
-    """Per-cell constant planes of an open grid built with stacked
-    arrival FIFOs (`_Grid(spec)`), on `device`."""
-    G, B, L = grid.G, grid.B, grid.L
+    """Per-cell constant planes of an open grid on `device`: each cell's
+    arrival FIFOs (`_Grid.cell_streams`)."""
     return consts_from_numpy(dict(
-        qa=grid.q_arrive.reshape(G * B, L),
-        qr=grid.q_row.reshape(G * B, L),
-        qs=grid.q_sub.reshape(G * B, L),
-        qw=grid.q_write.reshape(G * B, L),
-        n_pb=grid.n_per_bank, n_tot=grid.n_tot,
+        **grid.cell_streams(), n_pb=grid.n_per_bank, n_tot=grid.n_tot,
         **_shared_consts_np(grid)), device)
 
 
 def closed_consts(grid, device="cpu") -> dict:
-    """Per-cell constant planes of a closed grid built with stacked
-    streams (`_Grid(spec)`), on `device`."""
-    G, C, N = grid.G, grid.C, grid.N
+    """Per-cell constant planes of a closed grid on `device`: each cell's
+    per-core streams (`_Grid.cell_streams`)."""
     return consts_from_numpy(dict(
-        sw=grid.s_write.reshape(G * C, N),
-        sb=grid.s_bank.reshape(G * C, N),
-        sr=grid.s_row.reshape(G * C, N),
-        ssub=grid.s_sub.reshape(G * C, N),
-        sth=grid.s_think.reshape(G * C, N),
-        n_req=grid.n_req_c, mlp=grid.mlp_g,
+        **grid.cell_streams(), n_req=grid.n_req_c, mlp=grid.mlp_g,
         **_shared_consts_np(grid)), device)
 
 

@@ -3,8 +3,8 @@
 Replaces the TPU kernels `_mega_closed_kernel` / `_closed_call` (A1) and
 `_mega_open_kernel` / `_open_call` (A2) of the JAX package
 (`repro/kernels/sweep_megakernel.py`) and carries the host side of its
-`run_mega`: the packed per-cell params block, the scenario-major sort,
-chunk streaming and the un-sort.
+`run_mega`: the packed per-cell params block, the scenario-major sort
+and the un-sort.
 
 As beside every kernel of this package, for each of the two:
 
@@ -40,11 +40,11 @@ similar branches; each cell reads its scenario's stream plane at
 `scn_of_cell` (a 10^5-cell grid carries `n_scenarios` stream copies, not
 10^5): closed, the per-core streams ``sw sb sr ssub sth [NS, C, N]``
 and `nreq [NS, C]`; open, the per-bank arrival FIFOs ``qa qr qs qw [NS,
-B, L]`` and `npb [NS, B]`. `chunk_cells` may cut a grid into several
-launches (by default one takes it all); no pad rows are needed, and the
-`MP_PAD` column stays 0 and is not read. With `n_shards` cards the sorted
-rows are cut into that many contiguous shares; a card is sent its share's
-rows and the stream planes of the scenarios they name, and nothing else.
+B, L]`` and `npb [NS, B]`. One launch takes a card's whole share of
+the grid; no pad rows are needed, and the `MP_PAD` column stays 0 and is
+not read. With `n_shards` cards the sorted rows are cut into that many
+contiguous shares; a card is sent its share's rows and the stream planes
+of the scenarios they name, and nothing else.
 
 Cells of up to `MAX_BANKS` global banks and `MAX_CORES` cores are taken;
 past 32 of either a cell runs the kernels' wide instantiation (32 lanes,
@@ -107,8 +107,7 @@ def _pack_params(grid) -> np.ndarray:
     p[:, MP_URGENT] = grid.urgent_at
     p[:, MP_BUDGET] = grid.budget
     p[:, MP_REFI] = grid.REFI
-    p[:, MP_REFI_PB] = np.array(
-        [grid.timing[d].REFI_PB for _, _, d in grid.cells], np.int32)
+    p[:, MP_REFI_PB] = grid.REFI_PB
     p[:, MP_RFC_PB] = grid.RFC_PB
     p[:, MP_RFC_AB] = grid.RFC_AB
     p[:, MP_HIT] = grid.HIT
@@ -126,9 +125,8 @@ def _pack_params(grid) -> np.ndarray:
 def _layout(grid) -> np.ndarray:
     """Kernel row -> canonical cell index: cells sorted scenario-major,
     then by density, then by policy kind."""
-    d_index = {d: i for i, d in enumerate(grid.spec.densities)}
-    d_of = np.array([d_index[d] for _, _, d in grid.cells], np.int32)
-    return np.lexsort((grid.kind, d_of, grid.scn_of_cell)).astype(np.int64)
+    return np.lexsort((grid.kind, grid.den_of, grid.scn_of_cell)
+                      ).astype(np.int64)
 
 
 # ------------------------------------------------------- plain version
@@ -605,24 +603,21 @@ def _shares(G, n_shards):
             for i in range(n_shards)]
 
 
-def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
-    """Run every cell of `grid` (an `engine._Grid` built with
-    ``stack_streams=False``, either mode) through the mode's tick-loop
-    kernel.
+def run_mega(grid, *, device=None, n_shards=1):
+    """Run every cell of `grid` (an `engine._Grid`, either mode) through
+    the mode's tick-loop kernel, one launch a card.
 
     Returns a dict of canonical-cell-order `[G]` numpy arrays (keys
     ``reads writes hits misses refpb refab lat_sum maxlag last_done p99
     finished``, ``core_finish`` `[G, C]` for a closed grid and None for
-    an open one, and ``ticks`` — ticks run per cell, None on the CPU) —
-    exactly the inputs `engine._finalize` needs.
+    an open one, and ``ticks`` — ticks run per cell, None on the CPU):
+    the stat columns `engine._finalize_cells` takes.
 
-    `device=None` means the card; `chunk_cells` bounds the cells per
-    launch (default: a share in one launch). `n_shards`
-    cuts the kernel rows into that many contiguous shares, one per card
-    (``cuda:0 .. cuda:n_shards-1``), and raises `ValueError` when fewer
-    cards are visible; launches are asynchronous, so the cards run their
-    shares side by side and results are read back after the last
-    launch."""
+    `device=None` means the card. `n_shards` cuts the kernel rows into
+    that many contiguous shares, one per card (``cuda:0 ..
+    cuda:n_shards-1``), and raises `ValueError` when fewer cards are
+    visible; launches are asynchronous, so the cards run their shares
+    side by side and results are read back after the last launch."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     devices = _shard_devices(_resolve_device(device, "mega"), n_shards)
@@ -630,16 +625,9 @@ def run_mega(grid, *, device=None, n_shards=1, chunk_cells=None):
 
     cfg, order, params_h, scn_h = host_inputs(grid)
     G = grid.G
-    chunk = max(1, int(chunk_cells) if chunk_cells else G)
-    parts = []
-    for d, (r0, r1) in zip(devices, _shares(G, len(devices))):
-        if r1 == r0:
-            continue
-        params, scn, streams, counts = upload(grid, params_h, scn_h, d,
-                                              r0, r1)
-        for c0 in range(0, r1 - r0, chunk):
-            parts.append(run(cfg, params[c0:c0 + chunk],
-                             scn[c0:c0 + chunk], streams, counts))
+    parts = [run(cfg, *upload(grid, params_h, scn_h, d, r0, r1))
+             for d, (r0, r1) in zip(devices, _shares(G, len(devices)))
+             if r1 > r0]
 
     def gather(i, width):
         if parts[0][i] is None:

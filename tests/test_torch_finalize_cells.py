@@ -37,7 +37,7 @@ PAPER_POLICIES = ("all_bank", "darp", "dsarp", "elastic", "hira", "ideal",
 
 def _grids(**kw):
     """The port's grid (the megakernel's layout) and the reference's."""
-    return (engine._Grid(SweepSpec(**kw), stack_streams=False),
+    return (engine._Grid(SweepSpec(**kw)),
             ref_engine._Grid(RefSpec(**kw), stack_streams=False))
 
 

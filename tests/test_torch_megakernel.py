@@ -2,7 +2,7 @@
 `repro_torch` against the JAX package's megakernel (Pallas interpret mode
 off-TPU) and `batched` backends. On CPU tensors the port's wrapper runs
 the kernel's plain PyTorch version through the same host layout
-(`_pack_params`, sort, chunking, un-sort), which is what these tests
+(`_pack_params`, sort, shares, un-sort), which is what these tests
 cover; the CUDA kernel itself is held against the plain version on the
 card (`chip_smoke.py`, and the `gpu`-marked tests in
 `tests/test_torch_gpu.py`). Tolerance: none (exact equality)."""
@@ -43,20 +43,6 @@ def test_mega_cpu_equals_reference_batched(grid):
     assert_cells_equal(ref_sweep(RefSpec(**kw), "batched"), port, grid)
 
 
-@pytest.mark.parametrize("chunk_cells", [1, 5, 13])
-def test_mega_invariant_to_chunk_shape(chunk_cells):
-    """Chunking is a pure dispatch choice: small odd chunks (cells of one
-    scenario split across launches) reproduce the default exactly."""
-    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)),
-                 stack_streams=False)
-    base = mega.run_mega(grid, device="cpu")
-    odd = mega.run_mega(grid, device="cpu", chunk_cells=chunk_cells)
-    assert set(base) == set(odd)
-    for k in base:
-        if base[k] is not None:
-            np.testing.assert_array_equal(base[k], odd[k], k)
-
-
 def test_mega_unfinished_cells_report_the_horizon():
     """A horizon too short to finish: every backend reports
     core_finish = horizon for the cores still running."""
@@ -69,7 +55,7 @@ def test_mega_unfinished_cells_report_the_horizon():
 def test_pack_params_and_layout_equal_reference():
     kw = spec_kwargs("conformance", POLICIES)
     rgrid = ref_engine._Grid(RefSpec(**kw), stack_streams=False)
-    grid = _Grid(SweepSpec(**kw), stack_streams=False)
+    grid = _Grid(SweepSpec(**kw))
     np.testing.assert_array_equal(mega._pack_params(grid),
                                   ref_mega._pack_params(rgrid))
     order = mega._layout(grid)
@@ -102,16 +88,14 @@ def test_mega_n_shards_without_devices_raises():
         sweep(spec, "mega", n_shards=0, device="cpu")
 
 
-@pytest.mark.parametrize("n_shards,chunk_cells", [(2, None), (4, None),
-                                                  (3, 7), (64, None)])
+@pytest.mark.parametrize("n_shards", [2, 4, 3, 64])
 def test_mega_shards_cover_the_grid_in_contiguous_shares(
-        monkeypatch, n_shards, chunk_cells):
+        monkeypatch, n_shards):
     """With the device list faked (every shard on the CPU): each shard
     gets one contiguous share of ``ceil(G / n_shards)`` kernel rows, is
     sent only the stream planes its rows name, every row is launched
     exactly once, and the result equals the one-shard run."""
-    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)),
-                 stack_streams=False)
+    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)))
     base = mega.run_mega(grid, device="cpu")
     G, cpu = grid.G, torch.device("cpu")
     monkeypatch.setattr(mega, "_shard_devices", lambda d, n: [cpu] * n)
@@ -130,8 +114,7 @@ def test_mega_shards_cover_the_grid_in_contiguous_shares(
 
     monkeypatch.setattr(mega, "upload", upload)
     monkeypatch.setattr(mega, "mega_closed_cells", cells)
-    got = mega.run_mega(grid, device="cpu", n_shards=n_shards,
-                        chunk_cells=chunk_cells)
+    got = mega.run_mega(grid, device="cpu", n_shards=n_shards)
     per = -(-G // n_shards)
     assert len(uploads) == min(n_shards, -(-G // per))
     assert [u[0] for u in uploads] == list(range(0, G, per))
@@ -139,7 +122,7 @@ def test_mega_shards_cover_the_grid_in_contiguous_shares(
     # a share carries its own scenarios' planes only, indexed from 0
     assert all(ns == used and lo == 0 for _, _, ns, lo, used in uploads)
     assert sum(launches) == G
-    assert max(launches) <= min(per, chunk_cells or per)
+    assert launches == [r1 - r0 for r0, r1, *_ in uploads]
     for k in base:
         if base[k] is not None:
             np.testing.assert_array_equal(base[k], got[k], k)
@@ -151,8 +134,7 @@ def test_closed_operations_counts_one_cell_by_hand():
     from repro_torch.core.sweep.fields import (MEGA_NPARAM, MEGA_NSTAT,
                                                MS_FINISHED, MS_READS,
                                                MS_WRITES)
-    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)),
-                 stack_streams=False)
+    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)))
     cfg = mega.host_inputs(grid)[0]
     B, S, C, K, R, NC = cfg.B, cfg.S, cfg.C, cfg.K, cfg.R, cfg.NC
     params = torch.zeros((1, MEGA_NPARAM), dtype=torch.int32)   # KIND_IDEAL
@@ -210,8 +192,7 @@ def test_mega_custom_policy_points_at_batched():
 @pytest.mark.parametrize("fault", ["dtype", "shape", "stride", "banks"])
 def test_mega_wrapper_rejects_bad_inputs(fault):
     import dataclasses
-    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)),
-                 stack_streams=False)
+    grid = _Grid(SweepSpec(**spec_kwargs("kernels", None)))
     cfg, _, params, scn, streams, nreq = mega.device_inputs(grid, "cpu")
     if fault == "dtype":
         params = params.to(torch.int64)

@@ -189,7 +189,7 @@ def test_128_bank_grids_equal_reference(grid):
 def test_open_layout_and_streams_equal_reference():
     kw = spec_kwargs("open_conformance", POLICIES)
     rgrid = ref_engine._Grid(RefSpec(**kw), stack_streams=False)
-    grid = _Grid(SweepSpec(**kw), stack_streams=False)
+    grid = _Grid(SweepSpec(**kw))
     np.testing.assert_array_equal(mega._pack_params(grid),
                                   ref_mega._pack_params(rgrid))
     rows, _, _ = ref_mega._layout(rgrid, tile=grid.G)
@@ -210,28 +210,16 @@ def test_open_layout_and_streams_equal_reference():
 _DISPATCH = dict(spec_kwargs("open_kernels", None), reqs=16)
 
 
-@pytest.mark.parametrize("chunk_cells", [1, 5, 13])
-def test_open_mega_invariant_to_chunk_shape(chunk_cells):
-    grid = _Grid(SweepSpec(**_DISPATCH), stack_streams=False)
-    base = mega.run_mega(grid, device="cpu")
-    odd = mega.run_mega(grid, device="cpu", chunk_cells=chunk_cells)
-    assert base["core_finish"] is None and base["ticks"] is None
-    assert set(base) == set(odd)
-    for k in base:
-        if base[k] is not None:
-            np.testing.assert_array_equal(base[k], odd[k], k)
-
-
-@pytest.mark.parametrize("n_shards,chunk_cells", [(2, None), (3, 7),
-                                                  (64, None)])
+@pytest.mark.parametrize("n_shards", [2, 3, 64])
 def test_open_mega_shards_cover_the_grid_in_contiguous_shares(
-        monkeypatch, n_shards, chunk_cells):
+        monkeypatch, n_shards):
     """With the device list faked (every shard on the CPU): one
     contiguous share of ``ceil(G / n_shards)`` kernel rows a shard, each
     sent only the FIFO planes its rows name, every row launched once,
     and the result equal to the one-shard run."""
-    grid = _Grid(SweepSpec(**_DISPATCH), stack_streams=False)
+    grid = _Grid(SweepSpec(**_DISPATCH))
     base = mega.run_mega(grid, device="cpu")
+    assert base["core_finish"] is None and base["ticks"] is None
     G, cpu = grid.G, torch.device("cpu")
     monkeypatch.setattr(mega, "_shard_devices", lambda d, n: [cpu] * n)
     uploads, launches = [], []
@@ -249,15 +237,15 @@ def test_open_mega_shards_cover_the_grid_in_contiguous_shares(
 
     monkeypatch.setattr(mega, "upload", upload)
     monkeypatch.setattr(mega, "mega_open_cells", cells)
-    got = mega.run_mega(grid, device="cpu", n_shards=n_shards,
-                        chunk_cells=chunk_cells)
+    got = mega.run_mega(grid, device="cpu", n_shards=n_shards)
+    assert got["core_finish"] is None and got["ticks"] is None
     per = -(-G // n_shards)
     assert [u[0] for u in uploads] == list(range(0, G, per))
     assert all(r1 - r0 == min(per, G - r0) for r0, r1, *_ in uploads)
     assert all(ns == nq == used and lo == 0
                for _, _, ns, nq, lo, used in uploads)
     assert sum(launches) == G
-    assert max(launches) <= min(per, chunk_cells or per)
+    assert launches == [r1 - r0 for r0, r1, *_ in uploads]
     for k in base:
         if base[k] is not None:
             np.testing.assert_array_equal(base[k], got[k], k)
@@ -279,8 +267,7 @@ def test_open_unfinished_cells_report_the_horizon(backend, kw):
 def test_open_operations_counts_one_cell_by_hand():
     """`open_operations` on one `darp` cell, against the sum spelled out
     from its docstring."""
-    grid = _Grid(SweepSpec(**spec_kwargs("open_kernels", None)),
-                 stack_streams=False)
+    grid = _Grid(SweepSpec(**spec_kwargs("open_kernels", None)))
     cfg = mega.host_inputs(grid)[0]
     B, S, R, NC = cfg.B, cfg.S, cfg.R, cfg.NC
     params = torch.zeros((1, MEGA_NPARAM), dtype=torch.int32)
@@ -322,7 +309,7 @@ def test_open_default_device_is_the_card_and_a_missing_card_raises():
             sweep(spec, backend, **kw)
     with pytest.raises(RuntimeError, match="is_available"):
         sweep(spec)                               # default backend
-    grid = _Grid(spec, stack_streams=False)
+    grid = _Grid(spec)
     with pytest.raises(RuntimeError, match="is_available"):
         mega.run_mega(grid)
     assert (mega.LAUNCHES, mega.OPEN_LAUNCHES, tarb.LAUNCHES) == before \
@@ -333,8 +320,7 @@ def test_open_default_device_is_the_card_and_a_missing_card_raises():
                                    "mode", "streams"])
 def test_open_wrapper_rejects_bad_inputs(fault):
     import dataclasses
-    grid = _Grid(SweepSpec(**spec_kwargs("open_kernels", None)),
-                 stack_streams=False)
+    grid = _Grid(SweepSpec(**spec_kwargs("open_kernels", None)))
     cfg, _, params, scn, streams, npb = mega.device_inputs(grid, "cpu")
     if fault == "dtype":
         npb = npb.to(torch.int64)

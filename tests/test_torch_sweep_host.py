@@ -103,3 +103,94 @@ def test_weighted_speedup_matches_reference():
             wb = b.get("ref_ab", s, d).weighted_speedup_vs(
                 b.get("ideal", s, d))
             assert wa == wb and 0.0 < wb <= 1.0 + 1e-12
+
+
+#: the reference's stacked `[G, ...]` stream planes -> the port's
+#: per-scenario plane a cell's row is gathered from
+_STACKED = {"q_arrive": "scn_qa", "q_row": "scn_qr", "q_sub": "scn_qs",
+            "q_write": "scn_qw", "s_write": "scn_write",
+            "s_bank": "scn_bank", "s_row": "scn_row", "s_sub": "scn_sub",
+            "s_think": "scn_think"}
+_CUSTOM = "torch_test_custom_grid"
+
+
+def _custom_kwargs(mode: str) -> dict:
+    """A grid whose second policy is a registered custom one (registered
+    by `_registered_custom` in both packages)."""
+    closed = mode == "closed"
+    return dict(policies=("ideal", _CUSTOM, "darp", _CUSTOM),
+                scenarios=(("closed_mixed", "closed_read_heavy") if closed
+                           else ("mixed", "read_heavy")),
+                densities=(8, 32), reqs=32, seed=5, mode=mode)
+
+
+def _registered_custom():
+    from repro.core.policy import PolicyBase as RefBase
+    from repro.core.policy import registry as ref_registry
+    from repro_torch.core.policy import PolicyBase
+    from repro_torch.core.policy import registry
+
+    class RefCustom(RefBase):
+        name = _CUSTOM
+
+        def select(self, view):
+            return []
+
+    class Custom(PolicyBase):
+        name = _CUSTOM
+
+        def select(self, view):
+            return []
+
+    ref_registry.register_policy(_CUSTOM, RefCustom, override=True)
+    registry.register_policy(_CUSTOM, Custom, override=True)
+    return Custom, (ref_registry, registry)
+
+
+@pytest.mark.parametrize("name", ["conformance", "multirank", "kernels",
+                                  "subarray4", "open_kernels",
+                                  "open_conformance", "open_multirank",
+                                  "open_subarray4", "custom", "open_custom"])
+def test_grid_tables_equal_reference(name):
+    """The port's one grid layout against both of the reference's: every
+    per-cell column (name, dtype and value), each cell's stream rows
+    (``scn_*[scn_of_cell]`` against the stacked planes), the
+    per-scenario planes, the horizon and queue sizes, the timing, and
+    the custom cells, each with an instance of its own."""
+    custom, registries = (_registered_custom() if "custom" in name
+                          else (None, ()))
+    try:
+        kw = (_custom_kwargs("closed" if name == "custom" else "open")
+              if custom else spec_kwargs(name, POLICIES))
+        grid = engine._Grid(SweepSpec(**kw))
+        stacked = ref_engine._Grid(RefSpec(**kw))
+        per_scn = ref_engine._Grid(RefSpec(**kw), stack_streams=False)
+    finally:
+        for reg in registries:
+            reg._REGISTRY.pop(_CUSTOM)
+    for k, v in vars(stacked).items():
+        if isinstance(v, np.ndarray):
+            got = (getattr(grid, _STACKED[k])[grid.scn_of_cell]
+                   if k in _STACKED else getattr(grid, k))
+            assert got.dtype == v.dtype, k
+            np.testing.assert_array_equal(got, v, k)
+        elif isinstance(v, (bool, int, tuple)):
+            assert getattr(grid, k) == v, k
+    for k, v in vars(per_scn).items():
+        if k.startswith("scn_"):
+            assert getattr(grid, k).dtype == v.dtype, k
+            np.testing.assert_array_equal(getattr(grid, k), v, k)
+    assert grid.horizon == stacked.horizon == per_scn.horizon
+    if grid.closed:
+        assert grid.LQ == stacked.LQ
+        assert list(grid.demands) == list(stacked.demands)
+    else:
+        assert grid.L == stacked.L
+        assert list(grid.traces) == list(stacked.traces)
+    assert {d: dataclasses.asdict(t) for d, t in grid.timing.items()} == {
+        d: dataclasses.asdict(t) for d, t in stacked.timing.items()}
+    assert [g for g, _ in grid.customs] == [g for g, _ in stacked.customs]
+    if custom:
+        assert len(grid.customs) == 2 * 2 * 2
+        assert all(type(p) is custom for _, p in grid.customs)
+        assert len({id(p) for _, p in grid.customs}) == len(grid.customs)
