@@ -2,8 +2,9 @@
 print what ptxas says (registers, spills), hold every kernel against its
 plain version on small grids (both megakernels in both their narrow and
 their 128-bank form; the float kernels at their edge shapes, then once at
-full width through `repro_torch.kernels.ops`), and stop. Run on a machine
-with an NVIDIA GPU and nvcc: `python3 benchmarks_torch/first_call.py`."""
+full width through `repro_torch.kernels.ops`, E's backward too), and
+stop. Run on a machine with an NVIDIA GPU and nvcc:
+`python3 benchmarks_torch/first_call.py`."""
 import os
 import sys
 
@@ -29,6 +30,7 @@ torch.backends.cudnn.allow_tf32 = False
 print(cs.check_float_kernels(torch, np))
 for path in (cs.paged_decode_path, cs.prefill_flash_path, cs.ssd_path):
     print(path(torch, np)[1])
+print(cs.train_flash_path(torch, np))
 print("arbiter max abs err", cs.check_arbiter(torch, np))
 policies = tuple(list_policies())
 print(cs.check_megakernel(sweep, cs.conformance_specs(SweepSpec, policies)))

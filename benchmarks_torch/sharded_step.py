@@ -16,10 +16,11 @@ Each configuration runs in processes of its own, one card a rank, over
 NCCL (`tcp://127.0.0.1:<free port>`), and reports: the step's ms on rank
 0 (CUDA events around one step, the median of 5 after 2 warm-ups; every
 rank's median beside it), each card's peak memory
-(`max_memory_allocated` over the timed steps), kernel E's launches on
-each card in one step, and from `torch.profiler` over one more step
-(every rank runs it; rank 0's is reported) the device time in NCCL
-kernels, in kernel E and in the rest, beside the step's wall time.
+(`max_memory_allocated` over the timed steps), kernel E's launches and
+its backward's on each card in one step, and from `torch.profiler` over
+one more step (every rank runs it; rank 0's is reported) the device time
+in NCCL kernels, in kernel E and in the rest, beside the step's wall
+time.
 
 Then the dry run's qwen2.5-14b train cell on 4 cards, mesh (1, 4), cut
 to 1 x 512 tokens (the cell's optimizer: AdamW with float32 moments):
@@ -199,7 +200,7 @@ def dense_case(rank, *, model, arch=ARCH):
                 mesh, SP.batch_spec_axes(cfg, batch)))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        before = fa.LAUNCHES
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
         try:
             step(state, batch)
         except torch.OutOfMemoryError as e:
@@ -208,13 +209,15 @@ def dense_case(rank, *, model, arch=ARCH):
             del state, batch
             return out
         torch.cuda.synchronize()
-        e_launches = fa.LAUNCHES - before
+        e_launches = fa.LAUNCHES - before[0]
+        bwd_launches = fa.BWD_LAUNCHES - before[1]
         ms = _time(step, state, batch)
         peak = torch.cuda.max_memory_allocated() / 2**30
         prof = _profile(step, state, batch)  # a step: every rank runs it
     if dist.is_initialized():
         dist.barrier()
     return {"ms": ms, "peak_gib": peak, "e_launches": e_launches,
+            "e_backward_launches": bwd_launches,
             "profile": prof if rank == 0 else None}
 
 
@@ -329,6 +332,8 @@ def main() -> int:
                                         for r in ranks],
                 peak_gib_by_card=[r["peak_gib"] for r in ranks],
                 e_launches_by_card=[r["e_launches"] for r in ranks],
+                e_backward_launches_by_card=[r["e_backward_launches"]
+                                             for r in ranks],
                 profile_rank0=r0["profile"])
         lines.append(line)
         print(json.dumps(line), flush=True)

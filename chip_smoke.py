@@ -90,8 +90,17 @@ and prints one JSON object a line:
               `ops_paged_decode`); Qwen2.5-14B prefill, [40, 4096, 128]
               causal in bf16 and f32 through `ops.flash_attention` (E),
               and `ops.flash_attention_trainable`'s gradients at S=512
-              (path `ops_prefill_flash`); mamba2-130m's SSD, x [8, 4096,
-              24, 64] through `ops.mamba2_ssd` (F) (path `ops_ssd`).
+              (path `ops_prefill_flash`); E's backward kernels
+              (`flash_attention_backward`, from E's forward with its
+              log-sum-exp) at every `FLASH_CASES` entry, causal and not,
+              through the models' route, and at `FLASH_BWD_TIMED`
+              ([14, 4096, 64], the training cell's, and zamba2's D 112),
+              each held against autograd of the plain attention at
+              `FLASH_GRAD_REL`, twice with the same bits, one launch a
+              call; then the trainable route's gradient at the training
+              shape equal to theirs bit for bit (path `ops_train_flash`);
+              mamba2-130m's SSD, x [8, 4096, 24, 64] through
+              `ops.mamba2_ssd` (F) (path `ops_ssd`).
   8. figures  the port's figure, bench and tool scripts in this process,
               on the card (path `figures_mega`: A1 and A2): at
               `benchmarks/run.py --fast`'s arguments `fig_grids(800)`,
@@ -149,8 +158,10 @@ and prints one JSON object a line:
               kernel E is the forward of every attention and F of every
               Mamba layer's SSD, each launched again in the layer's
               rematerialized forward (E 48 / 96, F 48 launches a step),
-              both inside `torch.autograd.Function`s whose backward is
-              autograd of the plain version. The loss and every gradient
+              both inside `torch.autograd.Function`s: E's backward is its
+              backward kernels (24 / 48 launches a step, none recomputed
+              through the plain attention), F's autograd of the plain
+              version. The loss and every gradient
               leaf are held against the same call with no kernel
               (`plain_train`) at `MODEL_REL`, the q/k/v and Mamba input
               projections' gradients non-zero; ms a step, tokens/s and
@@ -195,14 +206,16 @@ and prints one JSON object a line:
 
 The megakernels score inside their own tick loops and never call the
 arbiter kernel: the arbiter kernel is on the `arbiter="cuda"` paths only.
-The seven kernels' launch counters are set to 0 just before each of the
-twenty-two paths and read just after it, and reported per path; a path that
-did not launch its kernels fails the run (`dryrun_pods` has none).
+The eight launch counters (the seven kernels' and E's backward's) are
+set to 0 just before each of the twenty-three paths and read just after
+it, and reported per path; a path that did not launch its kernels fails
+the run (`dryrun_pods` has none).
 Afterwards each kernel is timed at the shape its full-width path gives
 it (CUDA events) beside its plain version and its bound (E's f32 bound
 and F's are the lesser of the CUDA cores' float32 rate and three TF32
 products at the TF32 tensor-core rate, since both run 3xTF32; E beside
-`scaled_dot_product_attention`, C
+`scaled_dot_product_attention`, E's backward at `FLASH_BWD_TIMED` beside
+the plain attention's autograd backward and SDPA's backward, C
 beside `ops.paged_attention_serial` and with q in float32 and in
 bfloat16; D on float32 and on bfloat16 pages); the megakernels are held
 against their plain versions once more at that shape, and also at the small
@@ -1199,6 +1212,136 @@ def prefill_flash_path(torch, np):
         trainable_grad_max_abs_err=grad_err)
 
 
+# The backward kernels (`flash_attention_backward`) against autograd of
+# the plain attention on the card, both float32 (TF32 off): each gradient
+# within this share of the largest magnitude of the case's three plain
+# gradients (a causal single query's dq and dk are 0, and float32 leaves
+# ~1e-6 there).
+FLASH_GRAD_REL = 1e-4
+# (bh, sq, skv, d, causal) at which the backward is checked and timed:
+# qwen2-0.5b's 14 heads at the training cell's 4096-token micro-batch,
+# and zamba2's shared attention (head dim 112) at `model_hybrid`'s 512.
+FLASH_BWD_TIMED = ((14, 4096, 4096, 64, True), (32, 512, 512, 112, True))
+
+
+def plain_attention_grads(torch, fa, q, k, v, do, causal):
+    """(dq, dk, dv) of the plain attention by autograd: the backward the
+    trainable route took before it had kernels."""
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention_torch(*ins, causal=causal)
+    return torch.autograd.grad(out, ins, do)
+
+
+def flash_backward_case(torch, fa, q, k, v, do, causal, what):
+    """The backward kernels' (dq, dk, dv) for one case, from E's forward
+    with its log-sum-exp through the models' route (any lengths): twice,
+    the same bits both times, one launch counted a call; held against
+    `plain_attention_grads` within `FLASH_GRAD_REL` of their largest
+    magnitude. Returns the largest differences and magnitudes."""
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           ragged=True)
+    out = out.contiguous()
+    before = fa.BWD_LAUNCHES
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    again = fa.flash_attention_backward(q, k, v, out, lse, do,
+                                        causal=causal)
+    if fa.BWD_LAUNCHES != before + 2:
+        raise AssertionError(f"{what}: {fa.BWD_LAUNCHES - before} backward "
+                             f"launches counted for 2 calls")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two backward runs differ")
+    want = plain_attention_grads(torch, fa, q, k, v, do, causal)
+    rep = dict(max_abs_err=[float((a - b).abs().max())
+                            for a, b in zip(got, want)],
+               max_abs=[float(b.abs().max()) for b in want])
+    bar = FLASH_GRAD_REL * max(rep["max_abs"])
+    for err, name in zip(rep["max_abs_err"], "qkv"):
+        if not err <= bar:
+            raise AssertionError(f"{what} d{name}: max abs difference "
+                                 f"{err} over the bar {bar}")
+    return rep
+
+
+def train_flash_path(torch, np):
+    """The trainable route's backward (the backward kernels): at every
+    `FLASH_CASES` entry, causal and not, through the models' route (the
+    ragged lengths, Sq != Skv both ways, D of 4 to 128, q scaled by 8),
+    and at `FLASH_BWD_TIMED`, held against autograd of the plain attention
+    (`flash_backward_case`); then `ops.flash_attention_ragged_trainable`
+    forward and backward at the training shape, its gradients equal bit
+    for bit to `flash_attention_backward`'s, no call recomputed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = {}
+    for bh, sq, skv, d, q_scale in FLASH_CASES:
+        for causal in (True, False):
+            q, k, v = flash_inputs(torch, g, bh, sq, skv, d, q_scale)
+            do = torch.randn(q.shape, generator=g, device="cuda")
+            key = f"{bh}x{sq}x{skv}x{d}{'' if q_scale == 1 else 'x8q'}" \
+                  f"{'_causal' if causal else ''}"
+            cases[key] = flash_backward_case(torch, fa, q, k, v, do, causal,
+                                             f"flash backward {key}")
+    for bh, sq, skv, d, causal in FLASH_BWD_TIMED:
+        q, k, v = flash_inputs(torch, g, bh, sq, skv, d, 1)
+        do = torch.randn(q.shape, generator=g, device="cuda")
+        key = f"{bh}x{sq}x{skv}x{d}{'_causal' if causal else ''}"
+        cases[key] = flash_backward_case(torch, fa, q, k, v, do, causal,
+                                         f"flash backward {key}")
+    bh, sq, _, d, causal = FLASH_BWD_TIMED[0]
+    q, k, v = flash_inputs(torch, g, bh, sq, sq, d, 1)
+    do = torch.randn(q.shape, generator=g, device="cuda")
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    recomputes = ops.RECOMPUTES
+    got = torch.autograd.grad(
+        ops.flash_attention_ragged_trainable(*ins, causal), ins, do)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           ragged=True)
+    want = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the trainable route's gradient is not the "
+                             "backward kernels'")
+    if ops.RECOMPUTES != recomputes:
+        raise AssertionError("a float32 backward recomputed the oracle")
+    return dict(phase="ops_train_flash", rel_tolerance=FLASH_GRAD_REL,
+                cases=cases, trainable_shape=[bh, sq, d])
+
+
+def flash_backward_report(torch, fa, q, k, v, do, causal, reps):
+    """The backward kernels timed at one shape (CUDA events), beside
+    their bound (7 products at 3xTF32, or the CUDA cores' float32 rate if
+    lower; q, k, v, out, dout, lse read and dq, dk, dv written once), the
+    plain attention's autograd backward (recomputing its forward, as the
+    trainable route did before) and `scaled_dot_product_attention`'s
+    backward (timed only, never called by the port)."""
+    import torch.nn.functional as F
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           ragged=True)
+    out = out.contiguous()
+    fl = fa.backward_operations(bh, sq, skv, d, causal)
+    nbytes = 4 * (2 * (3 * q.numel() + 2 * k.numel()) + lse.numel())
+    (ms, b_by), how = min(
+        (bound(nbytes, fl, FP32_FLOPS), "float32 CUDA cores"),
+        (bound(nbytes, 3 * fl, TF32_TC_FLOPS), "3xTF32 tensor cores"))
+
+    def library(i):
+        ins = [x.detach()[None].requires_grad_() for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*ins, is_causal=causal)
+        return torch.autograd.grad(o, ins, do[None])
+    return dict(
+        shape=[bh, sq, skv, d], causal=causal, operations=fl,
+        bound_note=how, bound_ms=ms, bound_by=b_by,
+        ms=time_cuda(torch, lambda i: fa.flash_attention_backward(
+            q, k, v, out, lse, do, causal=causal), reps),
+        plain_ms=time_cuda(torch, lambda i: plain_attention_grads(
+            torch, fa, q, k, v, do, causal), max(1, reps // 4)),
+        library_ms=time_cuda(torch, library, reps),
+        forward_ms=time_cuda(torch, lambda i: fa.flash_attention_with_lse(
+            q, k, v, causal=causal, ragged=True), reps))
+
+
 def ssd_path(torch, np):
     """mamba2-130m's SSD scan over a batch of 8 sequences of 4096 tokens:
     x [8, 4096, 24, 64], B/C [8, 4096, 128], chunk 128, through
@@ -1312,6 +1455,13 @@ def time_float_kernels(torch, dec, qkv, ssd_args):
                                      *[x[None] for x in a], is_causal=True),
                                  10),
             bound_ms=ms, bound_by=b_by)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for bh, sq, skv, d, causal in FLASH_BWD_TIMED:
+        q, k, v = flash_inputs(torch, g, bh, sq, skv, d, 1)
+        do = torch.randn(q.shape, generator=g, device="cuda")
+        out[f"flash_attention_backward_{bh}x{sq}x{d}"] = \
+            flash_backward_report(torch, fa, q, k, v, do, causal, 5)
+        del q, k, v, do
     b, s, h, p = ssd_args[0].shape
     fl = ssd.operations(b, s, h, p, SSD_N, SSD_CHUNK)
     nbytes = 4 * (2 * ssd_args[0].numel() + ssd_args[1].numel() + h
@@ -1932,13 +2082,17 @@ def family_model(torch, name, seed):
 
 
 def kernel_launches(fn):
-    """`fn()` and the F and E launches it made: (out, {name: count})."""
+    """`fn()` and the F and E launches it made, E's backward launches and
+    its backward calls that recomputed the oracle: (out, {name: count})."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
-    before = (ssd.LAUNCHES, fa.LAUNCHES)
+    from repro_torch.kernels import ops
+    before = (ssd.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, ops.RECOMPUTES)
     out = fn()
     return out, {"mamba2_ssd": ssd.LAUNCHES - before[0],
-                 "flash_attention": fa.LAUNCHES - before[1]}
+                 "flash_attention": fa.LAUNCHES - before[1],
+                 "flash_backward": fa.BWD_LAUNCHES - before[2],
+                 "flash_recompute": ops.RECOMPUTES - before[3]}
 
 
 def decode_chain(torch, mod, params, cfg, dims, state, toks, pos0):
@@ -2376,6 +2530,12 @@ def check_model_train(torch, run):
             if r[what][kernel] != want:
                 raise AssertionError(f"{label}: {r[what][kernel]} {kernel} "
                                      f"launches in {what}, not {want}")
+            # E's backward: once a layer and microbatch, never recomputed
+            bwd = 0 if cfg.family == "ssm" else want // 2
+            if (r[what]["flash_backward"], r[what]["flash_recompute"]) != (
+                    bwd, 0):
+                raise AssertionError(f"{label}: {r[what]} in {what}: not "
+                                     f"{bwd} backward launches")
         grads_of = make_grad_fn(cfg, r["dims"], accum=r["accum"])
         with plain_train(fa, ssd, ops):
             (loss, _, grads), n = kernel_launches(
@@ -2985,6 +3145,7 @@ def main() -> int:
                 "arbiter": (arb, "LAUNCHES"), "kv_quant": (kq, "LAUNCHES"),
                 "paged_attention": (rpa, "LAUNCHES"),
                 "flash_attention": (fa, "LAUNCHES"),
+                "flash_backward": (fa, "BWD_LAUNCHES"),
                 "mamba2_ssd": (ssd, "LAUNCHES")}
 
     def drive(label, expects, fn, *args):
@@ -3033,6 +3194,9 @@ def main() -> int:
     qkv, pre = drive("ops_prefill_flash", "flash_attention",
                      prefill_flash_path, torch, np)
     emit(dict(pre, launches=paths["ops_prefill_flash"]))
+    tfl = drive("ops_train_flash", "flash_attention+flash_backward",
+                train_flash_path, torch, np)
+    emit(dict(tfl, launches=paths["ops_train_flash"]))
     ssd_args, sp = drive("ops_ssd", "mamba2_ssd", ssd_path, torch, np)
     emit(dict(sp, launches=paths["ops_ssd"]))
     figs = drive("figures_mega", "mega+mega_open", figures_phase,
@@ -3068,13 +3232,15 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
     t_train = time.perf_counter()
-    train_run, trs = drive("model_train_step", "flash_attention+mamba2_ssd",
+    train_run, trs = drive("model_train_step",
+                           "flash_attention+flash_backward+mamba2_ssd",
                            model_train_path, torch, np)
     trs["max_abs_err"] = check_model_train(torch, train_run)
     trs["seconds"] = round(time.perf_counter() - t_train, 3)
     emit(dict(trs, launches=paths["model_train_step"]))
     t_shard = time.perf_counter()
-    shard_errs, shs = drive("sharded_train_step", "flash_attention",
+    shard_errs, shs = drive("sharded_train_step",
+                            "flash_attention+flash_backward",
                             sharded_train_path, torch, np, train_run)
     shs["max_abs_err"] = max(shard_errs.values())
     shs["seconds"] = round(time.perf_counter() - t_shard, 3)
@@ -3227,6 +3393,21 @@ def main() -> int:
                         if k.startswith("flash")},
          "sass_HGMMA_bf16": sass["flash_bf16_HGMMA"],
          "sass_HMMA_f32": sass["flash_f32_HMMA"]},
+        {"name": "flash_attention_backward_kernels", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the reference differentiates its "
+                          "oracle (autograd of ref.flash_attention)",
+         "launches": sum(by_path["flash_backward"].values()),
+         "launches_by_path": by_path["flash_backward"],
+         "timed_at": {k[len("flash_attention_backward_"):]: v for k, v in
+                      tf.items()
+                      if k.startswith("flash_attention_backward_")},
+         "max_abs_err": {k: c["max_abs_err"] for k, c in
+                         tfl["cases"].items()},
+         "rel_tolerance": FLASH_GRAD_REL,
+         "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                         " backward (is_causal=True)"},
         {"name": "mamba2_ssd_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
          "replaces": "src/repro/kernels/mamba2_ssd.py:72",

@@ -122,9 +122,12 @@ def _bind(lib: ctypes.CDLL) -> None:
             [p] * 9 + [i] * 7 + [p]
         getattr(lib, f"flash_attention_{dt}_launch").argtypes = \
             [p] * 4 + [i] * 7 + [p]
+    lib.flash_attention_f32_lse_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.flash_attention_bwd_f32_launch.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.mamba2_ssd_f32_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     for name in ("kv_quant_f32", "kv_quant_bf16", "paged_attention_f32",
                  "paged_attention_bf16", "flash_attention_f32",
+                 "flash_attention_f32_lse", "flash_attention_bwd_f32",
                  "flash_attention_bf16", "mamba2_ssd_f32"):
         getattr(lib, f"{name}_launch").restype = i
 

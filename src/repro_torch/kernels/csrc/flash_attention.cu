@@ -53,7 +53,13 @@
 // folded in, and the row sum run on the accumulator fragments; a row's
 // four owner lanes reduce by two shuffles. The q blocks of a head are
 // issued heaviest first (the last causal block reads the most tiles).
+//
+// Given an `lse` pointer (the trainable route), the f32 kernel also writes
+// each query row's log-sum-exp of its scaled scores, m·scale + log(l), as
+// float32 [BH, Sq]: what the backward (flash_attention_bwd.cu) recomputes
+// P from. Without one (every other call) nothing else changes.
 #include <cstdint>
+#include <type_traits>
 
 #include "float_common.cuh"
 
@@ -513,7 +519,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
-    int D, int q_blk, int causal, float c) {
+    int D, int q_blk, int causal, float c, float* __restrict__ lse) {
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Qs = reinterpret_cast<const float*>(smem);
   const float* Ks = Qs + F_Q_FLOATS;         // two stages
@@ -622,6 +628,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
         *reinterpret_cast<float2*>(orow + col) =
             make_float2(o[j][2 * r] / den, o[j][2 * r + 1] / den);
     }
+    // ln(sum exp(s·scale)) = (m·c + log2(l))·ln(2), with c = scale·log2(e)
+    if (lse != nullptr && t == 0)
+      lse[bh * Sq + q_start + row] =
+          (m[r] * c + log2f(den)) * 0.6931471805599453f;
   }
 }
 
@@ -631,24 +641,30 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
 // `load_f32` copy the rows below Skv and zero-fill the rest (a zero-size
 // `cp.async` reads nothing), and `online_softmax` masks every key >= Skv,
 // so a key block of 1 (the models' route) takes ragged lengths.
-template <typename T>
-int launch(void (*kernel)(const T*, const T*, const T*, T*, int, int, int,
-                          int, int, float),
-           int smem, const void* q, const void* k, const void* v, void* out,
-           int BH, int Sq, int Skv, int D, int q_blk, int kv_blk, int causal,
-           void* stream) {
+// `lse` (f32 only; null for no log-sum-exp) is [BH, Sq] float32.
+template <typename T, typename Kernel>
+int launch(Kernel kernel, int smem, const void* q, const void* k,
+           const void* v, void* out, void* lse, int BH, int Sq, int Skv,
+           int D, int q_blk, int kv_blk, int causal, void* stream) {
   if (BH == 0 || Sq == 0) return 0;
   if (D > FA_DMAX || D % 4 != 0 || q_blk < 1 || q_blk > FA_BQ ||
-      Sq % q_blk != 0 || kv_blk < 1 || Skv % kv_blk != 0)
+      Sq % q_blk != 0 || kv_blk < 1 || Skv % kv_blk != 0 ||
+      (!std::is_same_v<T, float> && lse != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   // scores are taken raw; exp2 of (s - m) * scale * log2(e)
   const float c = (float)(1.4426950408889634 / sqrt((double)D));
-  kernel<<<dim3(Sq / q_blk, BH), FA_THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, D, q_blk,
-      causal, c);
+  const dim3 grid(Sq / q_blk, BH);
+  if constexpr (std::is_same_v<T, float>)
+    kernel<<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, D, q_blk,
+        causal, c, (float*)lse);
+  else
+    kernel<<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, D, q_blk,
+        causal, c);
   return (int)cudaGetLastError();
 }
 
@@ -659,8 +675,19 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           int Sq, int Skv, int D, int q_blk,
                                           int kv_blk, int causal,
                                           void* stream) {
-  return launch<float>(flash_attention_f32_kernel, F_SMEM, q, k, v, out, BH,
-                       Sq, Skv, D, q_blk, kv_blk, causal, stream);
+  return launch<float>(flash_attention_f32_kernel, F_SMEM, q, k, v, out,
+                       nullptr, BH, Sq, Skv, D, q_blk, kv_blk, causal, stream);
+}
+
+// the same, also writing each query row's log-sum-exp into `lse`
+extern "C" int flash_attention_f32_lse_launch(const void* q, const void* k,
+                                              const void* v, void* out,
+                                              void* lse, int BH, int Sq,
+                                              int Skv, int D, int q_blk,
+                                              int kv_blk, int causal,
+                                              void* stream) {
+  return launch<float>(flash_attention_f32_kernel, F_SMEM, q, k, v, out, lse,
+                       BH, Sq, Skv, D, q_blk, kv_blk, causal, stream);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
@@ -669,6 +696,6 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            int kv_blk, int causal,
                                            void* stream) {
   return launch<__nv_bfloat16>(flash_attention_bf16_kernel, BF_SMEM, q, k, v,
-                               out, BH, Sq, Skv, D, q_blk, kv_blk, causal,
-                               stream);
+                               out, nullptr, BH, Sq, Skv, D, q_blk, kv_blk,
+                               causal, stream);
 }

@@ -2,9 +2,9 @@
 // flash_attention, mamba2_ssd): loads and stores that widen bfloat16 to
 // float32 and narrow it back through the cuda_bf16.h intrinsics (round to
 // nearest even, as torch's `.to(torch.bfloat16)`), and warp reductions;
-// for the paged-attention and SSD kernels also 16-byte `cp.async` copies
-// and 3xTF32 products on `mma.sync` (the f32 flash kernel keeps copies of
-// its own).
+// for the paged-attention, SSD and flash-backward kernels also `cp.async`
+// copies and 3xTF32 products on `mma.sync` (the f32 flash forward keeps
+// copies of its own).
 #pragma once
 #include <stdint.h>
 #include <cuda_bf16.h>
@@ -73,6 +73,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
+               : "memory");
+}
+// the same with a source size: `src_bytes` 0 writes zeros and reads nothing
+// (rows past the tensor); 4-byte copies for single floats
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {

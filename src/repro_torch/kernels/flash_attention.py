@@ -45,8 +45,21 @@ tensor cores, in blocks of two warpgroups per (head, 128-row q block):
 
 `tests/test_torch_flash_numerics.py` emulates both arithmetics on the CPU
 against the bars.
+
+The gradient (`flash_attention_backward`, float32 only) is a hand-written
+kernel too, where the TPU kernel has none (the JAX package differentiates
+its oracle): `flash_attention_with_lse` is E's forward that also returns
+each query row's log-sum-exp, and the backward kernels
+(`csrc/flash_attention_bwd.cu`) recompute P tile by tile from it instead
+of building the [BH, Sq, Skv] scores. Beside them, as beside E:
+
+  * the plain version `flash_attention_backward_torch` (with
+    `flash_attention_lse_torch`) repeats their arithmetic and tile walks;
+  * `BWD_LAUNCHES` counts the backward's launches (a call counts one).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -54,9 +67,15 @@ from repro_torch.kernels import ref
 
 #: number of kernel launches made by `flash_attention`
 LAUNCHES = 0
+#: number of backward calls that launched the backward kernels
+BWD_LAUNCHES = 0
 
 #: the widest head the kernel takes, and the TPU kernel's block length
 MAX_D, BLOCK = 128, 128
+#: keys a kv tile of E's f32 kernel (its online log-sum-exp walks these)
+F_KT = 64
+#: keys of a dk/dv block and query rows of a dq block of the backward
+BWD_ROWS = 128
 
 flash_attention_torch = ref.flash_attention
 
@@ -90,17 +109,21 @@ def operations(bh: int, sq: int, skv: int, d: int, causal: bool, *,
     return bh * pairs * 4 * d
 
 
+def backward_operations(bh: int, sq: int, skv: int, d: int,
+                        causal: bool) -> int:
+    """Floating-point operations the gradient needs, counted as
+    `operations` counts the forward: 7 products of 2·D for each unmasked
+    (q, k) pair - S and dP in each of the two kernels, then dV, dK and
+    dQ. Masked parts of tiles and the three TF32 products of a float32
+    one are not counted."""
+    return operations(bh, sq, skv, d, causal, ragged=True) * 7 // 2
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: [BH, Sq, D]; k, v: [BH, Skv, D]; one dtype (float32 or
     bfloat16), contiguous, on one device. Returns [BH, Sq, D] of q's
     dtype. On the card D is at most `MAX_D` and a multiple of 4."""
-    fn = "flash_attention"
-    _check(fn, q, k, v)
-    sq, skv = q.shape[1], k.shape[1]
-    q_blk, kv_blk = blocks(sq, skv)
-    if q.device.type in ("cpu", "meta"):
-        return flash_attention_torch(q, k, v, causal=causal)
-    return _launch(fn, q, k, v, causal, q_blk, kv_blk)
+    return _forward("flash_attention", q, k, v, causal, False, False)[0]
 
 
 def padded_rows(sq: int) -> int:
@@ -122,20 +145,187 @@ def flash_attention_ragged(q, k, v, *, causal: bool = True):
     divisibility check. `blocks` and `flash_attention` keep the TPU
     kernel's contract. Same dtypes, devices and head widths as
     `flash_attention`; Sq and Skv at least 1."""
-    fn = "flash_attention_ragged"
+    return _forward("flash_attention_ragged", q, k, v, causal, True,
+                    False)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             ragged: bool = False):
+    """`(out, lse)`: `flash_attention` (`flash_attention_ragged` with
+    `ragged`) and each query row's log-sum-exp of its scaled scores,
+    `log(sum_k exp(q·k / sqrt(D)))` over the keys it sees, [BH, Sq]: what
+    the backward recomputes P from. On the card float32 only (E's f32
+    kernel writes it beside the output); on the CPU `out` is the plain
+    version's, as `flash_attention`'s, and `lse` is
+    `flash_attention_lse_torch`'s."""
+    return _forward("flash_attention_with_lse", q, k, v, causal, ragged,
+                    True)
+
+
+def _forward(fn, q, k, v, causal, ragged, with_lse):
+    """The three forwards above: `(out, lse or None)`."""
     _check(fn, q, k, v)
     sq, skv = q.shape[1], k.shape[1]
+    if ragged:
+        if sq < 1 or skv < 1:
+            raise ValueError(f"{fn}: sequence lengths {sq}, {skv} must be "
+                             f"positive")
+        rows = padded_rows(sq)
+        q_blk, kv_blk = min(BLOCK, rows), 1
+    else:
+        rows = sq
+        q_blk, kv_blk = blocks(sq, skv)
+    qp = q
+    if rows != sq:
+        qp = torch.nn.functional.pad(q, (0, 0, 0, rows - sq)).contiguous()
+    lse = None
+    if q.device.type in ("cpu", "meta"):
+        out = flash_attention_torch(qp, k, v, causal=causal)
+        if with_lse:
+            lse = flash_attention_lse_torch(q, k, causal=causal)
+    else:
+        if with_lse:
+            if q.dtype != torch.float32:
+                raise TypeError(f"{fn}: the log-sum-exp is written by the "
+                                f"float32 kernel; got {q.dtype}")
+            lse = torch.empty((q.shape[0], rows), dtype=torch.float32,
+                              device=q.device)
+        out = _launch(fn, qp, k, v, causal, q_blk, kv_blk, lse)
+        if lse is not None and rows != sq:
+            lse = lse[:, :sq].contiguous()
+    return (out[:, :sq] if rows != sq else out), lse
+
+
+def flash_attention_lse_torch(q, k, *, causal: bool = True):
+    """Each query row's log-sum-exp of its scaled scores, [BH, Sq], as
+    E's f32 kernel takes it: a running max m and sum l over key tiles of
+    `F_KT`, then m + log(l). Computed in float32, or in float64 for
+    float64 inputs (the plain versions' checks)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    wt = torch.promote_types(q.dtype, torch.float32)
+    qw, kw = q.to(wt), k.to(wt)
+    i64 = dict(dtype=torch.int64, device=q.device)
+    qpos = torch.arange(sq, **i64)
+    m = torch.full((bh, sq), -math.inf, dtype=wt, device=q.device)
+    l = torch.zeros((bh, sq), dtype=wt, device=q.device)
+    for k0 in range(0, skv, F_KT):
+        z = torch.einsum("bqd,bkd->bqk", qw,
+                         kw[:, k0:k0 + F_KT]) / math.sqrt(d)
+        if causal:
+            kpos = torch.arange(k0, min(k0 + F_KT, skv), **i64)
+            z = torch.where(qpos[:, None] >= kpos[None, :], z, -math.inf)
+        m_new = torch.maximum(m, z.amax(-1))
+        safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        l = l * torch.exp(m - safe) + torch.exp(z - safe[..., None]).sum(-1)
+        m = m_new
+    return m + torch.log(l)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *,
+                             causal: bool = True):
+    """`(dq, dk, dv)`: the gradient of `flash_attention_ragged` (any
+    lengths, E's masking) for the output gradient `dout`, from the
+    forward's `out` and `lse` (`flash_attention_with_lse`). q, out, dout
+    [BH, Sq, D]; k, v [BH, Skv, D]; lse [BH, Sq]; contiguous, on one
+    device. CUDA tensors launch the backward kernels (float32, D at most
+    `MAX_D` and a multiple of 4) or raise; CPU tensors (and `meta`) run
+    `flash_attention_backward_torch`."""
+    global BWD_LAUNCHES
+    from repro_torch.kernels import _build
+    fn = "flash_attention_backward"
+    _check(fn, q, k, v)
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    for name, x, shape in (("out", out, q.shape), ("dout", dout, q.shape)):
+        _build.check_tensor(fn, name, x, dtypes=(q.dtype,), ndim=3,
+                            device=q.device)
+        if x.shape != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+    _build.check_tensor(fn, "lse", lse, dtypes=(torch.float32, torch.float64),
+                        ndim=2, device=q.device)
+    if tuple(lse.shape) != (bh, sq):
+        raise ValueError(f"{fn}: lse has shape {tuple(lse.shape)}, expected "
+                         f"{(bh, sq)}")
     if sq < 1 or skv < 1:
         raise ValueError(f"{fn}: sequence lengths {sq}, {skv} must be "
                          f"positive")
-    rows = padded_rows(sq)
-    if rows != sq:
-        q = torch.nn.functional.pad(q, (0, 0, 0, rows - sq)).contiguous()
     if q.device.type in ("cpu", "meta"):
-        out = flash_attention_torch(q, k, v, causal=causal)
-    else:
-        out = _launch(fn, q, k, v, causal, min(BLOCK, rows), 1)
-    return out[:, :sq] if rows != sq else out
+        return flash_attention_backward_torch(q, k, v, out, lse, dout,
+                                              causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    if q.dtype != torch.float32 or lse.dtype != torch.float32:
+        raise TypeError(f"{fn}: the kernels take float32; got {q.dtype}, "
+                        f"lse {lse.dtype}")
+    if d > MAX_D or d % 4:
+        raise ValueError(f"{fn}: the kernels take D <= {MAX_D}, a multiple "
+                         f"of 4; got D={d}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if bh == 0:
+        return dq, dk, dv
+    di = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch("flash_attention_bwd_f32_launch", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq,
+                      skv, d, int(bool(causal)),
+                      torch.cuda.current_stream().cuda_stream)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward_torch(q, k, v, out, lse, dout, *,
+                                   causal: bool = True):
+    """The plain version of `flash_attention_backward`, walking the
+    kernels' tiles: Di = rowsum(dout ∘ out); for each block of `BWD_ROWS`
+    keys, the query tiles of t rows from the diagonal on (t = 64 where
+    the kernels pad D to 64 columns, 32 where they pad it to 128),
+    P = exp(q·kᵀ·scale - lse) masked, dP = dout·vᵀ, dS = P ∘ (dP - Di),
+    dv += Pᵀ·dout, dk += dSᵀ·q; for each block of `BWD_ROWS` query rows,
+    the key tiles up to the diagonal, dq += dS·k; dk and dq times scale
+    at the end. In float32, or float64 for float64 inputs; the gradients
+    come back in the inputs' dtype."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    wt = torch.promote_types(q.dtype, torch.float32)
+    qw, kw, vw, ow, gw = (x.to(wt) for x in (q, k, v, out, dout))
+    lw = lse.to(wt)
+    scale = 1.0 / math.sqrt(d)
+    i64 = dict(dtype=torch.int64, device=q.device)
+    di = (gw * ow).sum(-1)
+    rows, t = BWD_ROWS, 64 if d <= 64 else 32
+
+    def tile(q0, q1, k0, k1):
+        """P and dS of query rows [q0, q1) against keys [k0, k1)."""
+        z = torch.einsum("bqd,bkd->bqk", qw[:, q0:q1], kw[:, k0:k1]) * scale
+        p = torch.exp(z - lw[:, q0:q1, None])
+        if causal:
+            keep = (torch.arange(q0, q1, **i64)[:, None]
+                    >= torch.arange(k0, k1, **i64)[None, :])
+            p = torch.where(keep, p, 0.0)
+        dp = torch.einsum("bqd,bkd->bqk", gw[:, q0:q1], vw[:, k0:k1])
+        return p, p * (dp - di[:, q0:q1, None])
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (qw, kw, vw))
+    for k0 in range(0, skv, rows):
+        k1 = min(k0 + rows, skv)
+        for q0 in range((k0 // t) * t if causal else 0, sq, t):
+            q1 = min(q0 + t, sq)
+            p, ds = tile(q0, q1, k0, k1)
+            dv[:, k0:k1] += torch.einsum("bqk,bqd->bkd", p, gw[:, q0:q1])
+            dk[:, k0:k1] += torch.einsum("bqk,bqd->bkd", ds, qw[:, q0:q1])
+    for q0 in range(0, sq, rows):
+        q1 = min(q0 + rows, sq)
+        n_keys = min(skv, ((q1 - 1) // t + 1) * t) if causal else skv
+        for k0 in range(0, n_keys, t):
+            _, ds = tile(q0, q1, k0, min(k0 + t, skv))
+            dq[:, q0:q1] += torch.einsum("bqk,bkd->bqd", ds,
+                                         kw[:, k0:min(k0 + t, skv)])
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(fn, q, k, v):
@@ -151,8 +341,9 @@ def _check(fn, q, k, v):
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
 
 
-def _launch(fn, q, k, v, causal, q_blk, kv_blk):
-    """Kernel E of q's dtype on CUDA tensors, or raise."""
+def _launch(fn, q, k, v, causal, q_blk, kv_blk, lse=None):
+    """Kernel E of q's dtype on CUDA tensors, or raise; with `lse`
+    ([BH, Sq] float32) the f32 kernel also writes the log-sum-exp."""
     global LAUNCHES
     from repro_torch.kernels import _build
     if q.device.type != "cuda":
@@ -164,11 +355,14 @@ def _launch(fn, q, k, v, causal, q_blk, kv_blk):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if lse is None:
+        name, ptrs = f"flash_attention_{_DTYPES[q.dtype]}_launch", ()
+    else:
+        name, ptrs = "flash_attention_f32_lse_launch", (lse.data_ptr(),)
     with torch.cuda.device(q.device):
-        _build.launch(f"flash_attention_{_DTYPES[q.dtype]}_launch",
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), bh, sq, k.shape[1], d, q_blk, kv_blk,
-                      int(bool(causal)),
+        _build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), *ptrs, bh, sq, k.shape[1], d, q_blk,
+                      kv_blk, int(bool(causal)),
                       torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out

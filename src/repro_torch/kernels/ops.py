@@ -4,14 +4,18 @@
 Each call runs where its tensors lie: on CUDA tensors it launches the
 hand-written kernel of its module (`csrc/*.cu`) or raises; on CPU tensors
 it runs that module's plain PyTorch version. `flash_attention_trainable`
-launches the flash kernel forward; its backward recomputes through the
-oracle `ref.flash_attention` under autograd, as the reference's custom
-VJP does (the reference has no kernel backward). The models' card routes
-differentiate the same way: `flash_attention_ragged_trainable` (E at any
-lengths) and `mamba2_ssd_with_state_trainable` (F with its final state,
-backward through `ref.mamba2_ssd_with_state`). `paged_attention_serial`
-is the unfused baseline — dequantize the whole cache to bf16, then
-attend — plain PyTorch, as it is plain jnp in the reference.
+launches the flash kernel forward, which on float32 also writes each
+row's log-sum-exp; its backward is the hand-written backward kernels
+(`flash_attention.flash_attention_backward`), where the reference's
+custom VJP differentiates its oracle (it has no kernel backward); on
+bfloat16 CUDA tensors, which no training path gives it, the backward
+still recomputes through the oracle `ref.flash_attention` under autograd.
+The models' card route `flash_attention_ragged_trainable` (E at any
+lengths) shares that backward; `mamba2_ssd_with_state_trainable` (F with
+its final state) differentiates `ref.mamba2_ssd_with_state`.
+`paged_attention_serial` is the unfused baseline — dequantize the whole
+cache to bf16, then attend — plain PyTorch, as it is plain jnp in the
+reference.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.common import trace
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_quant as _kq
 from repro_torch.kernels import mamba2_ssd as _ssd
@@ -33,27 +38,52 @@ mamba2_ssd = _ssd.mamba2_ssd
 
 
 # ------------------------------------------------------------------- flash
+#: backward calls that recomputed through the oracle (bfloat16 on the card)
+RECOMPUTES = 0
+
+
 class _FlashTrainable(torch.autograd.Function):
-    """Kernel E forward, the oracle's gradient backward: the one backward
-    of E, shared by `flash_attention_trainable` (the TPU kernel's
-    contract, `_fa.flash_attention`) and the models' card route
+    """Kernel E forward and E's one backward, shared by
+    `flash_attention_trainable` (the TPU kernel's contract,
+    `_fa.flash_attention`) and the models' card route
     (`models.layers.chunked_attention`, any lengths,
-    `_fa.flash_attention_ragged`)."""
+    `_fa.flash_attention_ragged`). The forward saves q, k, v, the output
+    and each row's log-sum-exp (`_fa.flash_attention_with_lse`); the
+    backward is `_fa.flash_attention_backward`: the backward kernels on
+    float32 CUDA tensors, their plain version on CPU tensors. bfloat16
+    CUDA tensors save q, k, v alone and recompute the oracle's gradient
+    under autograd (`RECOMPUTES`). Every backward runs inside the span
+    `attn.backward` (CUDA events on the card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, ragged):
-        ctx.save_for_backward(q, k, v)
         ctx.causal = causal
-        fwd = _fa.flash_attention_ragged if ragged else _fa.flash_attention
-        return fwd(q, k, v, causal=causal)
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            ctx.save_for_backward(q, k, v)
+            fwd = _fa.flash_attention_ragged if ragged else _fa.flash_attention
+            return fwd(q, k, v, causal=causal)
+        out, lse = _fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                                ragged=ragged)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = R.flash_attention(q, k, v, causal=ctx.causal)
-            gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
-        return gq, gk, gv, None, None
+        global RECOMPUTES
+        saved = ctx.saved_tensors       # unpacked once (checkpointing)
+        with trace.span("attn.backward", g.device):
+            if len(saved) == 3:
+                RECOMPUTES += 1
+                q, k, v = (t.detach().requires_grad_() for t in saved)
+                with torch.enable_grad():
+                    out = R.flash_attention(q, k, v, causal=ctx.causal)
+                    grads = torch.autograd.grad(out, (q, k, v), g)
+            else:
+                q, k, v, out, lse = saved
+                grads = _fa.flash_attention_backward(
+                    q, k, v, out.contiguous(), lse, g.contiguous(),
+                    causal=ctx.causal)
+        return (*grads, None, None)
 
 
 def flash_attention_trainable(q, k, v, causal=True):

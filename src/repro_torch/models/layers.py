@@ -15,10 +15,11 @@ tensors they run the reference's loops (`chunked_attention_plain`,
 tensors, which carry shapes only (the dry run, `repro_torch.launch.dryrun`,
 as the reference's lowers its models' plain path); any other device
 raises. On the card both launches sit inside
-`torch.autograd.Function`s (`kernels.ops`) whose backward is autograd of
-the plain version recomputed from the saved inputs, as the reference's
-`flash_attention_trainable` differentiates its kernel: the kernel runs
-every forward, a gradient passes through it. On DTensors (a sharding
+`torch.autograd.Function`s (`kernels.ops`): E's backward is its own
+kernels (from the forward's saved output and log-sum-exp), F's is
+autograd of the plain version recomputed from the saved inputs, as the
+reference's `flash_attention_trainable` differentiates its kernel: the
+kernel runs every forward, a gradient passes through it. On DTensors (a sharding
 context) both run through `local_map` on each rank's local heads
 (`_attention_on_mesh`, `_ssd_on_mesh`): the same function of the local
 shards, kernel or plain by the shards' device. The other Mamba2 layers
@@ -268,8 +269,8 @@ def _flash_on_card(q, k, v, *, causal: bool, q_offset: int):
     not: the encoder's and cross-attention's non-causal calls and the
     decoders' causal ones. E counts query positions from 0: a `q_offset`
     raises `ValueError`. Differentiable:
-    `ops.flash_attention_ragged_trainable` (E forward, the oracle's
-    gradient backward); the GQA expansion and the permutes stay outside
+    `ops.flash_attention_ragged_trainable` (E forward, E's backward
+    kernels); the GQA expansion and the permutes stay outside
     it, under autograd, so the repeated kv heads' gradients are summed."""
     b, sq, hq, d = q.shape
     if q_offset:

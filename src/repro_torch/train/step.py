@@ -3,9 +3,11 @@ accumulation) + AdamW, mirroring `repro/train/step.py`.
 
 Gradients come from `torch.autograd.grad` over the param leaves, the
 reference's `jax.value_and_grad`. On the card the models' attention and
-SSD are kernels E and F inside `torch.autograd.Function`s (their
-backward is autograd of the plain versions), so every step launches E and
-F forward and again in each layer's rematerialized forward.
+SSD are kernels E and F inside `torch.autograd.Function`s (E's backward
+is its own kernels, inside the span ``attn.backward``; F's is autograd of
+the plain version), so every step launches E and F forward and again in
+each layer's rematerialized forward, and E's backward once a layer and
+micro-batch.
 
 The reference's step is pure and jit-able; this one is eager. It
 returns a new state and never changes the one it is given.

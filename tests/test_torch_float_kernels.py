@@ -239,6 +239,153 @@ def test_flash_attention_trainable_grads(causal):
         np.testing.assert_allclose(_np(a.grad), _np(b), atol=1e-4, rtol=1e-4)
 
 
+# ---------------------------------------------------------- flash backward
+# The backward kernels' plain version (`flash_attention_backward_torch`,
+# from `flash_attention_lse_torch`'s log-sum-exp), which the CPU tensors
+# of the trainable route take: the kernels' tile walks at their tile
+# sizes, held against autograd of the oracle. Lengths: Sq != Skv both
+# ways, the models' ragged 37/53, 300, 384 and 1000, one query over 300
+# keys (whose causal dq and dk are zero); D of 16, 64, 112 and 128.
+_BWD_CASES = [(2, 64, 64, 16), (2, 37, 53, 16), (2, 53, 37, 64),
+              (1, 300, 300, 64), (1, 384, 384, 112), (1, 1000, 1000, 64),
+              (2, 130, 70, 128), (1, 1, 300, 64), (2, 200, 256, 128)]
+# Bars, of the largest magnitude of each oracle gradient (plus as much
+# absolute, for the zero ones): float64 sums in another order only
+# (measured ~2e-15); float32 against the float32 oracle's own rounding
+# (measured below 1.2e-6).
+_BWD_REL = {"float64": 1e-12, "float32": 1e-5}
+
+
+def _attention(q, k, v, causal):
+    """`ref.flash_attention`'s function in the inputs' dtype (the oracle
+    casts to float32): the float64 gradients' oracle."""
+    s = torch.einsum("bqd,bkd->bqk", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        s = torch.where(torch.arange(q.shape[1])[:, None]
+                        >= torch.arange(k.shape[1])[None, :], s, -torch.inf)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1), v)
+
+
+def _bwd_inputs(bh, sq, skv, d, dtype):
+    rs = np.random.RandomState(7 * sq + skv + d)
+    return [torch.from_numpy(rs.randn(bh, n, d)).to(getattr(torch, dtype))
+            for n in (sq, skv, skv, sq)]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,d", _BWD_CASES)
+def test_flash_backward_plain_is_the_oracle_gradient(bh, sq, skv, d, causal,
+                                                     dtype):
+    q, k, v, g = _bwd_inputs(bh, sq, skv, d, dtype)
+    oracle = tref.flash_attention if dtype == "float32" else _attention
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = oracle(*ins, causal=causal)
+    want = torch.autograd.grad(out, ins, g)
+    lse = tfa.flash_attention_lse_torch(q, k, causal=causal)
+    got = tfa.flash_attention_backward_torch(q, k, v, out.detach(), lse, g,
+                                             causal=causal)
+    for a, b, name in zip(got, want, "qkv"):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = float((a - b).abs().max())
+        assert err <= _BWD_REL[dtype] * (float(b.abs().max()) + 1.0), \
+            f"d{name}: {err}"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,d", _BWD_CASES[:6])
+def test_flash_lse_is_the_logsumexp_of_the_scaled_scores(bh, sq, skv, d,
+                                                         causal):
+    q, k, _, _ = _bwd_inputs(bh, sq, skv, d, "float64")
+    s = torch.einsum("bqd,bkd->bqk", q, k) / np.sqrt(d)
+    if causal:
+        s = torch.where(torch.arange(sq)[:, None]
+                        >= torch.arange(skv)[None, :], s, -torch.inf)
+    lse = tfa.flash_attention_lse_torch(q, k, causal=causal)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=1e-13, atol=1e-13)
+    # in float32 the trainable forward's: the output as flash_attention's
+    q32, k32 = q.float(), k.float()
+    out, lse32 = tfa.flash_attention_with_lse(q32, k32, k32, causal=causal,
+                                              ragged=True)
+    assert torch.equal(out, tfa.flash_attention_ragged(q32, k32, k32,
+                                                       causal=causal))
+    assert lse32.dtype == torch.float32 and lse32.shape == (bh, sq)
+    np.testing.assert_allclose(lse32.numpy(), lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,sq,hq,hkv,d", [
+    (True, 300, 14, 2, 64), (False, 53, 6, 2, 112), (True, 130, 4, 1, 128)])
+def test_card_route_backward_with_gqa_is_the_oracle_gradient(causal, sq, hq,
+                                                             hkv, d):
+    """`_flash_on_card` on CPU tensors (the GQA expansion under autograd,
+    E's trainable Function with the plain backward inside the span
+    `attn.backward`) against autograd of the plain attention loop, no
+    kernel launched and nothing recomputed."""
+    from repro_torch.common import trace
+    rs = np.random.RandomState(sq + hq)
+    q = torch.from_numpy(rs.randn(2, sq, hq, d).astype(np.float32))
+    k, v = (torch.from_numpy(rs.randn(2, sq, hkv, d).astype(np.float32))
+            for _ in range(2))
+    g = torch.from_numpy(rs.randn(2, sq, hq, d).astype(np.float32))
+    counts = (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tops.RECOMPUTES)
+    grads = []
+    for card in (True, False):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        kx, vx = (tlayers._expand_kv(x, hq // hkv) for x in ins[1:])
+        if card:
+            out = tlayers._flash_on_card(ins[0], kx, vx, causal=causal,
+                                         q_offset=0)
+            trace.clear()
+            with trace.enable():
+                grads.append(torch.autograd.grad(out, ins, g))
+            names = [s.name for s in trace.records()]
+            trace.clear()
+            assert names == ["attn.backward"]
+        else:
+            out = tlayers.chunked_attention_plain(ins[0], kx, vx,
+                                                  causal=causal,
+                                                  q_block=sq, kv_block=sq)
+            grads.append(torch.autograd.grad(out, ins, g))
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES, tops.RECOMPUTES) == counts
+    for a, b, name in zip(*grads, "qkv"):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()), f"d{name}: {err}"
+
+
+@pytest.mark.parametrize("ragged", [True, False])
+def test_trainable_flash_backward_under_rematerialization(ragged):
+    """The models' per-layer remat (`models.transformer.remat`, a
+    non-reentrant `torch.utils.checkpoint`) unpacks the Function's saved
+    q, k, v, output and log-sum-exp once: the gradient is the one
+    without it, bit for bit."""
+    from repro_torch.models.transformer import remat
+    rs = np.random.RandomState(3)
+    q, k, v, g = (torch.from_numpy(rs.randn(2, 128, 32).astype(np.float32))
+                  for _ in range(4))
+    fn = (tops.flash_attention_ragged_trainable if ragged
+          else tops.flash_attention_trainable)
+    grads = []
+    for mode in ("train", "eval"):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = remat(lambda a, b, c: fn(a, b, c, True), mode, *ins)
+        grads.append(torch.autograd.grad(out, ins, g))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_refuses_what_the_kernels_do_not_take():
+    q = torch.zeros(2, 8, 16)
+    lse = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="dout has shape"):
+        tfa.flash_attention_backward(q, q, q, q, lse, q[:, :4].contiguous())
+    with pytest.raises(ValueError, match="lse has shape"):
+        tfa.flash_attention_backward(q, q, q, q, lse[:, :4].contiguous(), q)
+    with pytest.raises(TypeError, match="out has dtype"):
+        tfa.flash_attention_backward(q, q, q, q.double(), lse, q)
+
+
 # --------------------------------------------------------------------- ssd
 def _ssd_inputs(b, s, h, p, n, seed):
     rs = np.random.RandomState(seed)

@@ -520,3 +520,37 @@ def test_cuda_checkpoint_round_trip_is_bit_exact(tmp_path, moment_dtype):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", cs.FLASH_CASES)
+def test_cuda_flash_backward_equals_plain_gradient(causal, case):
+    """E's backward kernels from E's forward with its log-sum-exp, at the
+    models' route's lengths: held against autograd of the plain attention
+    at `chip_smoke.FLASH_GRAD_REL`, the same bits twice, one launch a
+    call (`chip_smoke.flash_backward_case`)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gpu_float_setup()
+    q, k, v = cs.flash_inputs(torch, g, *case)
+    do = torch.randn(q.shape, generator=g, device="cuda")
+    cs.flash_backward_case(torch, fa, q, k, v, do, causal,
+                           f"flash backward {case}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", cs.FLASH_CASES)
+def test_cuda_flash_forward_with_lse_keeps_the_output(causal, case):
+    """The trainable route's forward writes the log-sum-exp beside E's
+    output and leaves that output as `flash_attention_ragged`'s, bit for
+    bit; the log-sum-exp is the plain version's within float32 rounding."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gpu_float_setup()
+    q, k, v = cs.flash_inputs(torch, g, *case)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
+                                           ragged=True)
+    assert torch.equal(out, fa.flash_attention_ragged(q, k, v,
+                                                      causal=causal))
+    want = fa.flash_attention_lse_torch(q, k, causal=causal)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
