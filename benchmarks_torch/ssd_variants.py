@@ -279,8 +279,8 @@ THREE_LAUNCHES = [
     ("    if (!first && p_on) {\n      float yo[8][4];",
      "    if (false) {\n      float yo[8][4];"),
     ("\n}  // namespace\n", "\n" + SCAN_AND_CARRY),
-    ("      Bsz, S, H, P, N, L, hpb);\n  return (int)cudaGetLastError();\n}",
-     "      Bsz, S, H, P, N, L, hpb);\n"
+    ("      Bsz, S, H, G, P, N, L, hpb);\n  return (int)cudaGetLastError();\n}",
+     "      Bsz, S, H, G, P, N, L, hpb);\n"
      "  err = cudaGetLastError();\n  if (err != cudaSuccess) return (int)err;\n"
      "  ssd_scan_kernel<<<Bsz * H * ((P * N + SSD_THREADS - 1) / SSD_THREADS),\n"
      "                    SSD_THREADS, 0, (cudaStream_t)stream>>>(\n"
@@ -332,11 +332,12 @@ def launcher(lib, walk, full_workspace=False, state_arg=True):
     """run(x, dt, A, B, C, chunk, hpb) through a variant's library; the
     three-launch variant takes a workspace of every chunk's state. The
     kept source's launch function (`state_arg`) takes a final-state
-    pointer after y, passed null here: y alone is compared and timed."""
+    pointer after y, passed null here: y alone is compared and timed; and
+    a B/C group count after H, passed 1 (one B and C for every head)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.mamba2_ssd_f32_launch
     fn.argtypes = ([p] * 6 + [i] * 6 + [p]) if walk else (
-        [p] * (8 + state_arg) + [i] * 7 + [p])
+        [p] * (8 + state_arg) + [i] * (7 + state_arg) + [p])
     fn.restype = i
 
     def run(x, dt, A, B, C, chunk, hpb=ssd.HEADS_PER_BLOCK):
@@ -354,8 +355,9 @@ def launcher(lib, walk, full_workspace=False, state_arg=True):
             ring = torch.empty(b * nc * h * (pw * n + 1) if full_workspace
                                else b * h * 2 * pw * n, device="cuda")
             flags = torch.zeros(1 + b * h, dtype=torch.int32, device="cuda")
-            err = fn(*ptrs, ring.data_ptr(), flags.data_ptr(), b, s, h, pw,
-                     n, chunk, min(hpb, h), stream)
+            groups = (1,) if state_arg else ()
+            err = fn(*ptrs, ring.data_ptr(), flags.data_ptr(), b, s, h,
+                     *groups, pw, n, chunk, min(hpb, h), stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
         return y

@@ -37,8 +37,10 @@ and prints one JSON object a line:
               padding, GQA groups 1, 5 and 16, a sequence over six page
               splits with a ragged last page, pages of 128 rows; for
               flash `FLASH_CASES`: Sq != Skv, blocks of 8 to 256 rows, D
-              from 4 to 128, q scaled by 8; for the SSD `SSD_CASES`: 64
-              chunks, P and N not multiples of 16; both input types)
+              from 4 to 128 in both input types and to 224 in float32, q
+              scaled by 8; for the SSD `SSD_CASES`: 64 chunks, P and N not
+              multiples of 16, and `SSD_GROUP_CASES`: B/C in groups; both
+              input types)
               at the bars `FLASH_TOL`, `PAGED_TOL`, `SSD_TOL` (the
               reference's in float32; one rounding of the output in
               bfloat16); kv_quant exactly, at `KV_QUANT_SHAPES` (model
@@ -94,7 +96,8 @@ and prints one JSON object a line:
               (`flash_attention_backward`, from E's forward with its
               log-sum-exp) at every `FLASH_CASES` entry, causal and not,
               through the models' route, and at `FLASH_BWD_TIMED`
-              ([14, 4096, 64], the training cell's, and zamba2's D 112),
+              ([14, 4096, 64], the training cell's, zamba2's D 112, and
+              Zamba2-7B-Instruct's [32, 4096, 224]),
               each held against autograd of the plain attention at
               `FLASH_GRAD_REL`, twice with the same bits, one launch a
               call; then the trainable route's gradient at the training
@@ -923,6 +926,10 @@ PAGED_CASES = (                           # b, h, hkv, d, t, maxp, lens
 # frames) and its encoder (300 x 300), a longer ragged pair (1000: 8
 # padded q blocks, 16 kv tiles of 64 with a ragged last one), and
 # zamba2's head dim 112 (divided, through `flash_attention`).
+# The last three take heads wider than 128, which the float32 kernels
+# alone take (`flash_attention.MAX_D_F32`; the bf16 kernel refuses them):
+# Zamba2-7B-Instruct's shared attention at head dim 224, divided and at a
+# ragged length, and 160, which the wide plan pads to 224 columns.
 FLASH_CASES = ((2, 64, 64, 16, 1), (1, 16, 16, 8, 1), (1, 256, 256, 64, 1),
                (2, 128, 128, 128, 1),
                (1, 128, 256, 128, 1), (2, 256, 128, 64, 1),
@@ -930,13 +937,26 @@ FLASH_CASES = ((2, 64, 64, 16, 1), (1, 16, 16, 8, 1), (1, 256, 256, 64, 1),
                (1, 64, 64, 4, 1), (2, 32, 32, 12, 1), (1, 128, 128, 100, 1),
                (1, 256, 256, 64, 8),
                (2, 1, 300, 64, 1), (2, 300, 300, 64, 1),
-               (1, 1000, 1000, 64, 1), (2, 256, 256, 112, 1))
+               (1, 1000, 1000, 64, 1), (2, 256, 256, 112, 1),
+               (2, 256, 256, 224, 1), (1, 300, 300, 224, 1),
+               (2, 64, 64, 160, 1))
+
+
+def flash_dtypes(torch, fa, d):
+    """The input types kernel E takes at head width `d`."""
+    return ((torch.float32, torch.bfloat16) if d <= fa.MAX_D
+            else (torch.float32,))
 # ssd: (b, s, h, p, n, chunk). Chunks of 8 and 16 rows (one tensor-core
 # tile, part of one); 64 chunks, whose state crosses 63 look-back steps;
 # P and N not multiples of 16 (tiles padded with zeros).
 SSD_CASES = ((2, 64, 3, 8, 16, 16), (2, 32, 1, 64, 8, 8),
              (1, 256, 2, 64, 128, 128), (2, 1024, 3, 64, 128, 16),
              (1, 64, 2, 12, 20, 32))
+# ssd with B/C in groups: (b, s, h, p, n, chunk, groups). Zamba2-7B's
+# 112 heads in 2 groups of 56 (7 blocks of 8 heads a group), 3 groups of
+# 2 heads, and groups of 5 heads (a block's last heads ragged).
+SSD_GROUP_CASES = ((1, 512, 112, 64, 64, 128, 2), (2, 64, 6, 8, 16, 16, 3),
+                   (1, 256, 20, 64, 128, 64, 2))
 
 
 def flash_entry(fa, sq, skv):
@@ -1083,7 +1103,7 @@ def check_float_kernels(torch, np):
     errs = {}
     for case in FLASH_CASES:
         q, k, v = flash_inputs(torch, g, *case)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in flash_dtypes(torch, fa, case[3]):
             for causal in (True, False):
                 qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
                 bh, sq, skv, d, qs = case
@@ -1106,17 +1126,26 @@ def check_float_kernels(torch, np):
                                              key + " with state: y")
         errs[key + " final state"] = close(torch, st, st_want, *SSD_TOL,
                                            key + " final state")
+    for (b, s, h, p, n, chunk, grp) in SSD_GROUP_CASES:
+        args = ssd_inputs(torch, g, b, s, h, p, n, grp)
+        key = f"ssd B{b} S{s} H{h} P{p} N{n} chunk{chunk} G{grp}"
+        y, st = ssd.mamba2_ssd_with_state(*args, chunk=chunk)
+        y_want, st_want = ssd.mamba2_ssd_with_state_torch(*args, chunk=chunk)
+        errs[key + ": y"] = close(torch, y, y_want, *SSD_TOL, key + ": y")
+        errs[key + " final state"] = close(torch, st, st_want, *SSD_TOL,
+                                           key + " final state")
     out["mamba2_ssd"] = errs
     return out
 
 
-def ssd_inputs(torch, g, b, s, h, p, n):
+def ssd_inputs(torch, g, b, s, h, p, n, groups=None):
     """x, dt (post-softplus, > 0), A (< 0), B, C as the reference test
-    draws them."""
+    draws them; B and C [b, s, n], or [b, s, groups, n]."""
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda")
+    bc = (b, s, n) if groups is None else (b, s, groups, n)
     return (rnd(b, s, h, p), rnd(b, s, h).abs() * 0.1 + 0.01,
-            -rnd(h).abs() - 0.1, rnd(b, s, n), rnd(b, s, n))
+            -rnd(h).abs() - 0.1, rnd(*bc), rnd(*bc))
 
 
 def paged_decode_path(torch, np):
@@ -1220,8 +1249,10 @@ def prefill_flash_path(torch, np):
 FLASH_GRAD_REL = 1e-4
 # (bh, sq, skv, d, causal) at which the backward is checked and timed:
 # qwen2-0.5b's 14 heads at the training cell's 4096-token micro-batch,
-# and zamba2's shared attention (head dim 112) at `model_hybrid`'s 512.
-FLASH_BWD_TIMED = ((14, 4096, 4096, 64, True), (32, 512, 512, 112, True))
+# zamba2's shared attention (head dim 112) at `model_hybrid`'s 512, and
+# Zamba2-7B-Instruct's (32 heads of 224) at its training cell's 4096.
+FLASH_BWD_TIMED = ((14, 4096, 4096, 64, True), (32, 512, 512, 112, True),
+                   (32, 4096, 4096, 224, True))
 
 
 def plain_attention_grads(torch, fa, q, k, v, do, causal):

@@ -48,6 +48,11 @@ class SSMConfig:
     expand: int = 2
     head_dim: int = 64
     chunk: int = 128               # SSD chunk length
+    # port-only fields, kept out of the repr (held equal to the JAX
+    # package's configs'): B/C groups, each read by n_heads / n_groups
+    # heads; softplus(dt) clamped below at dt_min (0: not)
+    n_groups: int = field(default=1, repr=False)
+    dt_min: float = field(default=0.0, repr=False)
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -71,6 +76,13 @@ class ArchConfig:
     norm_eps: float = 1e-6
     # hybrid (zamba2): every `attn_every`-th block is the shared-weight attn block
     attn_every: int = 0
+    # hybrid as published (Zamba2, `models/hybrid._published_*`; port-only,
+    # kept out of the repr as above): the layers that first run a shared
+    # block (empty: `attn_every`), the shared blocks taken in turn, and
+    # the LoRA rank on the MLP's gate/up, one adapter an application
+    hybrid_layers: tuple = field(default=(), repr=False)
+    n_mem_blocks: int = field(default=1, repr=False)
+    adapter_rank: int = field(default=0, repr=False)
     # encdec (seamless): n_layers applies to each of encoder and decoder
     n_encoder_layers: int = 0
     # 'token' (ids -> embedding) or 'embed' (frontend stub provides embeddings)
@@ -92,6 +104,8 @@ class ArchConfig:
         if self.family == "ssm":
             return 0
         if self.family == "hybrid":
+            if self.hybrid_layers:
+                return len(self.hybrid_layers)
             return self.n_layers // self.attn_every
         if self.family == "encdec":
             return self.n_encoder_layers + 2 * self.n_layers  # self+cross in dec
@@ -136,6 +150,17 @@ class ArchConfig:
             n += self.n_layers * per
         elif self.family == "ssm":
             n += self.n_layers * (ssm_params() + d)
+        elif self.family == "hybrid" and self.hybrid_layers:
+            s = self.ssm
+            di, gn, nh = s.d_inner(d), s.n_groups * s.d_state, s.n_heads(d)
+            conv = di + 2 * gn
+            mamba = (d + d * (di + conv + nh) + conv * (s.d_conv + 1)
+                     + 3 * nh + di + di * d)
+            dh, h2 = att.head_dim * att.n_heads, 2 * d
+            shared = h2 + 3 * h2 * dh + dh * d + d + 3 * d * self.d_ff
+            apps = len(self.hybrid_layers)
+            n += self.n_layers * mamba + self.n_mem_blocks * shared
+            n += apps * (self.adapter_rank * (d + 2 * self.d_ff) + d * d)
         elif self.family == "hybrid":
             n_attn = self.n_layers // self.attn_every
             n_mamba = self.n_layers - n_attn
@@ -180,6 +205,14 @@ class ArchConfig:
         ssm = self.ssm
         if ssm is not None:
             ssm = replace(ssm, d_state=16, head_dim=16, chunk=16)
+        if self.hybrid_layers:
+            # the published layout at 8 layers: blocks A, B, A after two,
+            # four and seven Mamba layers; heads twice as wide over the
+            # concatenated input
+            return replace(
+                self, n_layers=8, hybrid_layers=(2, 4, 7), d_model=64,
+                d_ff=128, vocab_size=256, adapter_rank=8, ssm=ssm,
+                attention=replace(att, head_dim=2 * 64 // att.n_heads))
         return replace(
             self,
             n_layers=max(2, self.attn_every) * 2 if self.family == "hybrid" else 2,
@@ -233,7 +266,15 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-_MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+#: archs registered beside the assigned ones, with no counterpart in the
+#: JAX package: `list_archs`, which the parity and dry-run suites walk
+#: against that package, leaves them out
+EXTRA_ARCH_IDS = [
+    "zamba2-7b-instruct",
+]
+
+_MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+               for a in ARCH_IDS + EXTRA_ARCH_IDS}
 
 
 def register_arch(cfg: ArchConfig) -> ArchConfig:

@@ -124,7 +124,7 @@ def _bind(lib: ctypes.CDLL) -> None:
             [p] * 4 + [i] * 7 + [p]
     lib.flash_attention_f32_lse_launch.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.flash_attention_bwd_f32_launch.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.mamba2_ssd_f32_launch.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.mamba2_ssd_f32_launch.argtypes = [p] * 9 + [i] * 8 + [p]
     for name in ("kv_quant_f32", "kv_quant_bf16", "paged_attention_f32",
                  "paged_attention_bf16", "flash_attention_f32",
                  "flash_attention_f32_lse", "flash_attention_bwd_f32",

@@ -6,7 +6,8 @@
 // in repro_torch/kernels/ref.py; wrapper: repro_torch/kernels/flash_attention.py.
 //
 // q [BH, Sq, D], k/v [BH, Skv, D] (bfloat16 or float32, kv GQA-expanded,
-// D <= 128 and a multiple of 4) -> [BH, Sq, D] of q's dtype. q and kv
+// D a multiple of 4, at most 128 in bf16 and 224 in f32) -> [BH, Sq, D] of
+// q's dtype. q and kv
 // blocks of min(128, S) rows as the TPU kernel's (the models' route,
 // `flash_attention_ragged`, pads q to such blocks and passes a key block
 // of 1: keys of any length, see `launch`); causal means
@@ -40,7 +41,8 @@
 //   value): single-pass TF32 misses the float32 bar (2e-5) by ~40x, and
 //   the TF32 `wgmma` takes B only K-major while V is MN-major. Eight warps
 //   of 16 q rows share the block's tiles of 64 keys, stored row-major with
-//   a padded stride. The C fragment of m16n8k8 does not map onto its A
+//   a padded stride (D <= 128; wider heads: tiles of 32 keys, rows
+//   permuted by 16-byte chunks instead of padded, see `FPlan`). The C fragment of m16n8k8 does not map onto its A
 //   fragment (a lane holds keys 2t, 2t+1 of S but columns t, t+4 of A), so
 //   instead of moving P across lanes the P·V product's k index is
 //   permuted: A's k-slot t is key 2t and slot t+4 is key 2t+1, and V's B
@@ -68,7 +70,7 @@ namespace {
 constexpr int FA_THREADS = 256;
 constexpr int FA_BQ = 128;   // query rows a block: the TPU kernel's block
 constexpr int BF_KT = 128;  // keys a kv tile, bf16
-constexpr int F_KT = 64;    // keys a kv tile, f32
+constexpr int F_KT = 64;    // keys a kv tile, f32 at D <= 128
 constexpr int FA_DMAX = 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -457,25 +459,49 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_bf16_kernel(
 }
 
 // ==================================================== f32 with 3xTF32
-// Row-major tiles of 132 floats a row: 16-byte rows for cp.async, and the
-// fragment reads below hit 32 different banks.
-constexpr int F_STRIDE = FA_DMAX + 4;
-constexpr int F_Q_FLOATS = FA_BQ * F_STRIDE;
-constexpr int F_TILE_FLOATS = F_KT * F_STRIDE;
-constexpr int F_SMEM = (F_Q_FLOATS + 4 * F_TILE_FLOATS) * 4;  // 202,752 B
+// Two plans of the same kernel, by head width. D <= 128: row-major tiles
+// of 132 floats a row (16-byte rows for cp.async; the fragment reads
+// below hit 32 different banks) and kv tiles of 64 keys. 128 < D <= 224:
+// the padded rows of 228 floats would not fit Q and the two-stage ring in
+// shared memory even at 32 keys a tile, so rows keep 224 floats and each
+// row's 16-byte chunks are permuted by XOR with (row & 7) (`FPlan::at`):
+// a stride of 224 puts every row on bank 0, and the permutation spreads
+// the fragment reads of rows r..r+7 over 32 banks again. Q, 128 rows, and
+// kv tiles of 32 keys: 229,376 bytes.
+template <int DMAX, int KT, bool SWZ>
+struct FPlan {
+  static constexpr int STRIDE = SWZ ? DMAX : DMAX + 4;
+  static constexpr int Q_FLOATS = FA_BQ * STRIDE;
+  static constexpr int TILE_FLOATS = KT * STRIDE;
+  static constexpr int SMEM = (Q_FLOATS + 4 * TILE_FLOATS) * 4;
+  // the float offset of (row, col) in a tile
+  static __device__ __forceinline__ int at(int row, int col) {
+    return row * STRIDE + (SWZ ? col ^ ((row & 7) << 2) : col);
+  }
+  // at(row, c + 4) - at(row, c) for a column c of bit 2 clear: the
+  // permutation keeps rows eight apart in step, and moves column c + 4
+  // back by 4 in an odd row
+  static __device__ __forceinline__ int plus4(int row) {
+    return SWZ && (row & 1) ? -4 : 4;
+  }
+};
+using F128 = FPlan<FA_DMAX, F_KT, false>;  // 202,752 B
+using F224 = FPlan<224, 32, true>;       // 229,376 B
 
-template <int R>
+template <int R, typename PL>
 __device__ __forceinline__ void load_f32(uint32_t dst, const float* src,
                                          int row0, int n, int D) {
+  constexpr int CH = (PL::STRIDE - (PL::STRIDE % 8)) / 4;  // chunks a row
   const int present = tile_rows(row0, R, n);
   const float* base = src + (long long)row0 * D;
 #pragma unroll
-  for (int it = 0; it < R * 32 / FA_THREADS; ++it) {  // 32 chunks a row
+  for (int it = 0; it < R * CH / FA_THREADS; ++it) {
     const int i = threadIdx.x + it * FA_THREADS;
-    const int r = i >> 5, c = i & 31;
+    // (a row of 32 chunks by shifts, as the 128-column plan always took it)
+    const int r = CH == 32 ? i >> 5 : i / CH, c = CH == 32 ? i & 31 : i % CH;
     const bool ok = r < present;
     if (c < D / 4)
-      cp_async16(dst + (r * F_STRIDE + c * 4) * 4,
+      cp_async16(dst + PL::at(r, c * 4) * 4,
                  ok ? base + (long long)r * D + c * 4 : src, ok ? 16 : 0);
   }
 }
@@ -516,14 +542,16 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
+template <int DMAX, int KT, bool SWZ>
 __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
     int D, int q_blk, int causal, float c, float* __restrict__ lse) {
+  using PL = FPlan<DMAX, KT, SWZ>;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Qs = reinterpret_cast<const float*>(smem);
-  const float* Ks = Qs + F_Q_FLOATS;         // two stages
-  const float* Vs = Ks + 2 * F_TILE_FLOATS;  // two stages
+  const float* Ks = Qs + PL::Q_FLOATS;         // two stages
+  const float* Vs = Ks + 2 * PL::TILE_FLOATS;  // two stages
 
   const int qi = Sq / q_blk - 1 - (int)blockIdx.x;
   const long long bh = blockIdx.y;
@@ -538,57 +566,60 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
   const float* kb = k + bh * Skv * D;
   const float* vb = v + bh * Skv * D;
 
-  if (D < FA_DMAX) {  // columns past D are never copied: make them zeros
-    zero_smem(smem, F_SMEM);
+  if (D < DMAX) {  // columns past D are never copied: make them zeros
+    zero_smem(smem, PL::SMEM);
     __syncthreads();
   }
 
-  float o[16][4];
+  float o[DMAX / 8][4];
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < DMAX / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {fk::NEG_INF, fk::NEG_INF}, l[2] = {0.f, 0.f};
 
-  tile_loop<F_KT>(
-      tiles_needed<F_KT>(Skv, q_start, q_blk, causal),
-      [&] { load_f32<FA_BQ>(smem_u32(Qs), qb, 0, q_blk, D); },
+  tile_loop<KT>(
+      tiles_needed<KT>(Skv, q_start, q_blk, causal),
+      [&] { load_f32<FA_BQ, PL>(smem_u32(Qs), qb, 0, q_blk, D); },
       [&](int st, int key0) {
-        load_f32<F_KT>(smem_u32(Ks + st * F_TILE_FLOATS), kb, key0, Skv, D);
-        load_f32<F_KT>(smem_u32(Vs + st * F_TILE_FLOATS), vb, key0, Skv, D);
+        load_f32<KT, PL>(smem_u32(Ks + st * PL::TILE_FLOATS), kb, key0, Skv,
+                         D);
+        load_f32<KT, PL>(smem_u32(Vs + st * PL::TILE_FLOATS), vb, key0, Skv,
+                         D);
       },
       [&](int st, int key0, auto prefetch) {
         prefetch();
         if (!warp_has_rows || (causal && key0 > warp_last)) return;
-        const float* Kt = Ks + st * F_TILE_FLOATS;
-        const float* Vt = Vs + st * F_TILE_FLOATS;
-        float s[F_KT / 8][4];
+        const float* Kt = Ks + st * PL::TILE_FLOATS;
+        const float* Vt = Vs + st * PL::TILE_FLOATS;
+        float s[KT / 8][4];
 #pragma unroll
-        for (int j = 0; j < F_KT / 8; ++j)
+        for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
         // S = Q·Kᵀ over k steps of 8 columns
 #pragma unroll
-        for (int ks = 0; ks < FA_DMAX / 8; ++ks) {
-          const float* qr = Qs + row0 * F_STRIDE + 8 * ks + t;
+        for (int ks = 0; ks < DMAX / 8; ++ks) {
+          const float* qr = Qs + PL::at(row0, 8 * ks + t);
+          const int q4 = PL::plus4(row0);
           uint32_t ah[4], al[4];
           split_tf32(qr[0], ah[0], al[0]);
-          split_tf32(qr[8 * F_STRIDE], ah[1], al[1]);
-          split_tf32(qr[4], ah[2], al[2]);
-          split_tf32(qr[8 * F_STRIDE + 4], ah[3], al[3]);
+          split_tf32(qr[8 * PL::STRIDE], ah[1], al[1]);
+          split_tf32(qr[q4], ah[2], al[2]);
+          split_tf32(qr[8 * PL::STRIDE + q4], ah[3], al[3]);
 #pragma unroll
-          for (int j = 0; j < F_KT / 8; ++j) {
-            const float* kr = Kt + (8 * j + g) * F_STRIDE + 8 * ks + t;
-            mma_3xtf32(s[j], ah, al, kr[0], kr[4]);
+          for (int j = 0; j < KT / 8; ++j) {
+            const float* kr = Kt + PL::at(8 * j + g, 8 * ks + t);
+            mma_3xtf32(s[j], ah, al, kr[0], kr[PL::plus4(g)]);
           }
         }
         float alpha[2];
-        const bool mask = key0 + F_KT > Skv ||
-                          (causal && key0 + F_KT - 1 > warp_first);
-        online_softmax<F_KT / 8, false>(&s[0][0], m, l, alpha, mask, causal,
-                                        key0 + 2 * t, Skv, q_start + row0, c);
+        const bool mask = key0 + KT > Skv ||
+                          (causal && key0 + KT - 1 > warp_first);
+        online_softmax<KT / 8, false>(&s[0][0], m, l, alpha, mask, causal,
+                                      key0 + 2 * t, Skv, q_start + row0, c);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < DMAX / 8; ++j) {
           o[j][0] *= alpha[0];
           o[j][1] *= alpha[0];
           o[j][2] *= alpha[1];
@@ -598,16 +629,22 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
         // t is key 2t (s[j][0], s[j][2]), slot t + 4 is key 2t + 1
         // (s[j][1], s[j][3]); V's B fragment rows follow.
 #pragma unroll
-        for (int j = 0; j < F_KT / 8; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           uint32_t ph[4], pl[4];
           split_tf32(s[j][0], ph[0], pl[0]);
           split_tf32(s[j][2], ph[1], pl[1]);
           split_tf32(s[j][1], ph[2], pl[2]);
           split_tf32(s[j][3], ph[3], pl[3]);
-          const float* vr = Vt + (8 * j + 2 * t) * F_STRIDE + g;
+          const int r0 = 8 * j + 2 * t;
+          const float* vr = Vt + r0 * PL::STRIDE + g;
 #pragma unroll
-          for (int cc = 0; cc < FA_DMAX / 8; ++cc)
-            mma_3xtf32(o[cc], ph, pl, vr[8 * cc], vr[F_STRIDE + 8 * cc]);
+          for (int cc = 0; cc < DMAX / 8; ++cc) {
+            if constexpr (SWZ)  // the row's permutation moves each column
+              mma_3xtf32(o[cc], ph, pl, Vt[PL::at(r0, g + 8 * cc)],
+                         Vt[PL::at(r0 + 1, g + 8 * cc)]);
+            else
+              mma_3xtf32(o[cc], ph, pl, vr[8 * cc], vr[PL::STRIDE + 8 * cc]);
+          }
         }
       });
 
@@ -622,7 +659,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
     if (row >= q_blk) continue;
     float* orow = out + (bh * Sq + q_start + row) * D;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < DMAX / 8; ++j) {
       const int col = 8 * j + 2 * t;
       if (col < D)
         *reinterpret_cast<float2*>(orow + col) =
@@ -641,13 +678,14 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attention_f32_kernel(
 // `load_f32` copy the rows below Skv and zero-fill the rest (a zero-size
 // `cp.async` reads nothing), and `online_softmax` masks every key >= Skv,
 // so a key block of 1 (the models' route) takes ragged lengths.
-// `lse` (f32 only; null for no log-sum-exp) is [BH, Sq] float32.
+// `lse` (f32 only; null for no log-sum-exp) is [BH, Sq] float32. `dmax`
+// is the widest head the kernel's plan takes.
 template <typename T, typename Kernel>
-int launch(Kernel kernel, int smem, const void* q, const void* k,
+int launch(Kernel kernel, int smem, int dmax, const void* q, const void* k,
            const void* v, void* out, void* lse, int BH, int Sq, int Skv,
            int D, int q_blk, int kv_blk, int causal, void* stream) {
   if (BH == 0 || Sq == 0) return 0;
-  if (D > FA_DMAX || D % 4 != 0 || q_blk < 1 || q_blk > FA_BQ ||
+  if (D > dmax || D % 4 != 0 || q_blk < 1 || q_blk > FA_BQ ||
       Sq % q_blk != 0 || kv_blk < 1 || Skv % kv_blk != 0 ||
       (!std::is_same_v<T, float> && lse != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -668,6 +706,19 @@ int launch(Kernel kernel, int smem, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+// the f32 kernel of the plan that takes D: 128 or 224 columns
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* lse, int BH, int Sq, int Skv, int D, int q_blk,
+               int kv_blk, int causal, void* stream) {
+  if (D <= FA_DMAX)
+    return launch<float>(flash_attention_f32_kernel<FA_DMAX, F_KT, false>,
+                         F128::SMEM, FA_DMAX, q, k, v, out, lse, BH, Sq, Skv,
+                         D, q_blk, kv_blk, causal, stream);
+  return launch<float>(flash_attention_f32_kernel<224, 32, true>, F224::SMEM,
+                       224, q, k, v, out, lse, BH, Sq, Skv, D, q_blk, kv_blk,
+                       causal, stream);
+}
+
 }  // namespace
 
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
@@ -675,8 +726,8 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           int Sq, int Skv, int D, int q_blk,
                                           int kv_blk, int causal,
                                           void* stream) {
-  return launch<float>(flash_attention_f32_kernel, F_SMEM, q, k, v, out,
-                       nullptr, BH, Sq, Skv, D, q_blk, kv_blk, causal, stream);
+  return launch_f32(q, k, v, out, nullptr, BH, Sq, Skv, D, q_blk, kv_blk,
+                    causal, stream);
 }
 
 // the same, also writing each query row's log-sum-exp into `lse`
@@ -686,8 +737,8 @@ extern "C" int flash_attention_f32_lse_launch(const void* q, const void* k,
                                               int Skv, int D, int q_blk,
                                               int kv_blk, int causal,
                                               void* stream) {
-  return launch<float>(flash_attention_f32_kernel, F_SMEM, q, k, v, out, lse,
-                       BH, Sq, Skv, D, q_blk, kv_blk, causal, stream);
+  return launch_f32(q, k, v, out, lse, BH, Sq, Skv, D, q_blk, kv_blk, causal,
+                    stream);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
@@ -695,7 +746,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            int Sq, int Skv, int D, int q_blk,
                                            int kv_blk, int causal,
                                            void* stream) {
-  return launch<__nv_bfloat16>(flash_attention_bf16_kernel, BF_SMEM, q, k, v,
-                               out, nullptr, BH, Sq, Skv, D, q_blk, kv_blk,
-                               causal, stream);
+  return launch<__nv_bfloat16>(flash_attention_bf16_kernel, BF_SMEM, FA_DMAX,
+                               q, k, v, out, nullptr, BH, Sq, Skv, D, q_blk,
+                               kv_blk, causal, stream);
 }

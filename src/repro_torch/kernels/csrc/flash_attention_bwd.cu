@@ -10,7 +10,7 @@
 //
 // q, out, dout [BH, Sq, D]; k, v [BH, Skv, D]; lse [BH, Sq] (each query
 // row's log of the sum of exp(score·scale), E's forward writes it) ->
-// dq [BH, Sq, D], dk, dv [BH, Skv, D], float32, kv GQA-expanded, D <= 128
+// dq [BH, Sq, D], dk, dv [BH, Skv, D], float32, kv GQA-expanded, D <= 224
 // and a multiple of 4, any Sq, Skv >= 1. Masking is E's: causal means
 // qpos >= kpos counted from 0; keys at or past Skv and query rows at or
 // past Sq weigh 0. With z = q·kᵀ·scale, P = exp(z - lse), Di = rowsum(dout ∘
@@ -47,7 +47,13 @@
 // streamed rows. Tiles are row-major with a stride of D + 4
 // floats (fragment reads hit 32 banks) and D padded with zeros to 64 where
 // D <= 64, else to 128: the streamed tiles hold 64 rows at 64 columns, 32
-// at 128, so either plan fits its shared memory once a block.
+// at 128, so either plan fits its shared memory once a block. Wider heads
+// (D <= 224) take blocks of 64 keys or query rows, streamed tiles of 32,
+// and rows of 224 floats whose 16-byte chunks are permuted by XOR with
+// (row & 7) instead of padded (as E's forward at that width): 229,888
+// bytes. A warp's 16 rows then carry half of the output columns (dk and dv
+// together would need 224 accumulators a thread), so two warps take the
+// same rows, each computing P and dP whole and accumulating its half.
 #include <cstdint>
 
 #include "float_common.cuh"
@@ -60,14 +66,41 @@ constexpr int FB_ROWS = 128;     // keys of a dk/dv block, rows of a dq block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int FLUSH_ROWS = 256;  // streamed rows between flushes
 
-// DC chunks of 8 columns: D padded to 8·DC; T rows a streamed tile.
+// DC chunks of 8 columns: D padded to 8·DC; ROWS rows a block's fixed
+// tiles, T a streamed tile; a warp's 16 rows accumulate DC / CS chunks of
+// the output columns, CS warps a row group.
 template <int DC>
 struct Plan {
-  static constexpr int S = 8 * DC + 4;  // floats a shared-memory row
-  static constexpr int T = 512 / DC;
-  // two fixed tiles of FB_ROWS rows, two streamed tensors in two stages,
+  static constexpr bool SWZ = DC > 16;  // permuted 8·DC-float rows
+  static constexpr int S = SWZ ? 8 * DC : 8 * DC + 4;  // floats a row
+  static constexpr int ROWS = SWZ ? 64 : FB_ROWS;
+  static constexpr int T = SWZ ? 32 : 512 / DC;
+  static constexpr int CS = FB_WARPS / (ROWS / 16);
+  static constexpr int NC = DC / CS;  // accumulated chunks a warp
+  // two fixed tiles of ROWS rows, two streamed tensors in two stages,
   // and (dk/dv) lse and Di of the streamed rows in two stages
-  static constexpr int SMEM = ((2 * FB_ROWS + 4 * T) * S + 4 * T) * 4;
+  static constexpr int SMEM = ((2 * ROWS + 4 * T) * S + 4 * T) * 4;
+  // the float offset of (row, col) in a tile
+  static __device__ __forceinline__ int at(int row, int col) {
+    return row * S + (SWZ ? col ^ ((row & 7) << 2) : col);
+  }
+  // at(row, c + 4) - at(row, c) for a column c of bit 2 clear (the
+  // permutation moves column c + 4 back by 4 in an odd row)
+  static __device__ __forceinline__ int plus4(int row) {
+    return SWZ && (row & 1) ? -4 : 4;
+  }
+  // B operand (row, col) and (row + 1, col) of a permuted k step: rows
+  // r and r + 1, column `col` of chunk `cc`
+  template <typename F>
+  static __device__ __forceinline__ void pair(const float* tile, int r,
+                                              int g, int cc, F use) {
+    if constexpr (SWZ) {
+      use(tile[at(r, g + 8 * cc)], tile[at(r + 1, g + 8 * cc)]);
+    } else {
+      const float* p = tile + r * S + g;
+      use(p[8 * cc], p[S + 8 * cc]);
+    }
+  }
 };
 
 // 2^x (MUFU.EX2, relative error ~2^-22), as E's forward takes it
@@ -91,7 +124,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const int r = i / CH, c = i % CH;
     const bool ok = r < present;
     if (c < D / 4)
-      fk::cp_async16_zfill(dst + r * Plan<DC>::S + 4 * c,
+      fk::cp_async16_zfill(dst + Plan<DC>::at(r, 4 * c),
                            ok ? base + (long long)r * D + 4 * c : src,
                            ok ? 16 : 0);
   }
@@ -103,23 +136,25 @@ __device__ __forceinline__ void zero_smem(float* smem, int bytes) {
 }
 
 // A fragment of rows r0 + g, r0 + g + 8 and columns 8ks + t, 8ks + t + 4 of
-// a row-major tile, split into TF32 hi and lo parts
-template <int S>
+// a tile of plan PL, split into TF32 hi and lo parts
+template <typename PL>
 __device__ __forceinline__ void a_frag(const float* tile, int r0, int ks,
                                        uint32_t (&ah)[4], uint32_t (&al)[4]) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* p = tile + (r0 + g) * S + 8 * ks + t;
-  const float a[4] = {p[0], p[8 * S], p[4], p[8 * S + 4]};
+  // rows eight apart keep their permutation
+  const float* p = tile + PL::at(r0 + g, 8 * ks + t);
+  const int c4 = PL::plus4(r0 + g);
+  const float a[4] = {p[0], p[8 * PL::S], p[c4], p[8 * PL::S + c4]};
   fk::split_a(a, ah, al);
 }
 
-// The accumulators acc[cc] (rows row0 + g, row0 + g + 8; columns 8cc + 2t,
-// 8cc + 2t + 1) times `mul` into rows of `out` ([n, D], row-major), added to
-// what is there (`add`) or written over it; rows past n and columns past D
-// are left alone. The accumulators restart from zero.
-template <int DC>
-__device__ __forceinline__ void flush(float* out, int row0, int n, int D,
-                                      float (&acc)[DC][4], float mul,
+// The accumulators acc[cc] (rows row0 + g, row0 + g + 8; columns col0 +
+// 8cc + 2t, col0 + 8cc + 2t + 1) times `mul` into rows of `out` ([n, D],
+// row-major), added to what is there (`add`) or written over it; rows past
+// n and columns past D are left alone. The accumulators restart from zero.
+template <int NC>
+__device__ __forceinline__ void flush(float* out, int row0, int col0, int n,
+                                      int D, float (&acc)[NC][4], float mul,
                                       bool add) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
@@ -127,8 +162,8 @@ __device__ __forceinline__ void flush(float* out, int row0, int n, int D,
     const int row = row0 + g + 8 * r;
     float* orow = out + (long long)row * D;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) {
-      const int col = 8 * cc + 2 * t;
+    for (int cc = 0; cc < NC; ++cc) {
+      const int col = col0 + 8 * cc + 2 * t;
       if (row < n && col < D) {
         float2 x = make_float2(acc[cc][2 * r] * mul, acc[cc][2 * r + 1] * mul);
         if (add) {
@@ -177,20 +212,23 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dkdv_f32_kernel(
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int D,
     int causal, float c, float scale) {
   using P = Plan<DC>;
-  constexpr int S = P::S, T = P::T;
+  constexpr int S = P::S, T = P::T, NC = P::NC;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + FB_ROWS * S;
-  float* Qs = Vs + FB_ROWS * S;  // two stages
+  float* Vs = Ks + P::ROWS * S;
+  float* Qs = Vs + P::ROWS * S;  // two stages
   float* Os = Qs + 2 * T * S;    // dout, two stages
   float* Ls = Os + 2 * T * S;    // lse, two stages
   float* Ds = Ls + 2 * T;        // Di, two stages
 
   const long long bh = blockIdx.y;
-  const int key0 = blockIdx.x * FB_ROWS;  // key tile 0, the heaviest, first
+  const int key0 = blockIdx.x * P::ROWS;  // key tile 0, the heaviest, first
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, t = tid & 3;
-  const int wkey0 = key0 + 16 * warp;  // the warp's keys; a thread's: +g, +g+8
+  // the warp's 16 keys, and its first output chunk
+  const int rw = P::CS == 1 ? warp : warp % (P::ROWS / 16);
+  const int cc0 = P::CS == 1 ? 0 : warp / (P::ROWS / 16) * NC;
+  const int wkey0 = key0 + 16 * rw;  // the warp's keys; a thread's: +g, +g+8
   const int n_qt = (Sq + T - 1) / T;
   const int qt0 = causal ? min(n_qt, key0 / T) : 0;
   const float* qb = q + bh * Sq * D;
@@ -202,8 +240,8 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dkdv_f32_kernel(
     zero_smem(smem, P::SMEM);
     __syncthreads();
   }
-  load_rows<FB_ROWS, DC>(Ks, k + bh * Skv * D, key0, Skv, D);
-  load_rows<FB_ROWS, DC>(Vs, v + bh * Skv * D, key0, Skv, D);
+  load_rows<P::ROWS, DC>(Ks, k + bh * Skv * D, key0, Skv, D);
+  load_rows<P::ROWS, DC>(Vs, v + bh * Skv * D, key0, Skv, D);
   auto load_q = [&](int st, int q0) {
     load_rows<T, DC>(Qs + st * T * S, qb, q0, Sq, D);
     load_rows<T, DC>(Os + st * T * S, ob, q0, Sq, D);
@@ -216,9 +254,9 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dkdv_f32_kernel(
     }
   };
 
-  float dka[DC][4], dva[DC][4];
+  float dka[NC][4], dva[NC][4];
 #pragma unroll
-  for (int j = 0; j < DC; ++j)
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
   float* dkb = dk + bh * Skv * D;
@@ -247,13 +285,13 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dkdv_f32_kernel(
 #pragma unroll
       for (int ks = 0; ks < DC; ++ks) {
         uint32_t kh[4], kl[4], vh[4], vl[4];
-        a_frag<S>(Ks, 16 * warp, ks, kh, kl);
-        a_frag<S>(Vs, 16 * warp, ks, vh, vl);
+        a_frag<P>(Ks, 16 * rw, ks, kh, kl);
+        a_frag<P>(Vs, 16 * rw, ks, vh, vl);
 #pragma unroll
         for (int j = 0; j < T / 8; ++j) {
-          const int off = (8 * j + g) * S + 8 * ks + t;
-          fk::mma_3xtf32(s[j], kh, kl, Qt[off], Qt[off + 4]);
-          fk::mma_3xtf32(dp[j], vh, vl, Ot[off], Ot[off + 4]);
+          const int off = P::at(8 * j + g, 8 * ks + t), c4 = P::plus4(g);
+          fk::mma_3xtf32(s[j], kh, kl, Qt[off], Qt[off + c4]);
+          fk::mma_3xtf32(dp[j], vh, vl, Ot[off], Ot[off + c4]);
         }
       }
       // P = exp(z - lse) and dS = P ∘ (dP - Di); element e of chunk j is
@@ -283,26 +321,27 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dkdv_f32_kernel(
         uint32_t ph[4], pl[4], dh[4], dl[4];
         c_as_a(s[j], ph, pl);
         c_as_a(dp[j], dh, dl);
-        const int off = (8 * j + 2 * t) * S + g;
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          fk::mma_3xtf32(dva[cc], ph, pl, Ot[off + 8 * cc],
-                         Ot[off + S + 8 * cc]);
-          fk::mma_3xtf32(dka[cc], dh, dl, Qt[off + 8 * cc],
-                         Qt[off + S + 8 * cc]);
+        for (int cc = 0; cc < NC; ++cc) {
+          P::pair(Ot, 8 * j + 2 * t, g, cc0 + cc, [&](float b0, float b1) {
+            fk::mma_3xtf32(dva[cc], ph, pl, b0, b1);
+          });
+          P::pair(Qt, 8 * j + 2 * t, g, cc0 + cc, [&](float b0, float b1) {
+            fk::mma_3xtf32(dka[cc], dh, dl, b0, b1);
+          });
         }
       }
     }
     if ((it - qt0) % (FLUSH_ROWS / T) == FLUSH_ROWS / T - 1 && it + 1 < n_qt) {
-      flush<DC>(dkb, wkey0, Skv, D, dka, scale, flushed);
-      flush<DC>(dvb, wkey0, Skv, D, dva, 1.f, flushed);
+      flush<NC>(dkb, wkey0, 8 * cc0, Skv, D, dka, scale, flushed);
+      flush<NC>(dvb, wkey0, 8 * cc0, Skv, D, dva, 1.f, flushed);
       flushed = true;
     }
     __syncthreads();
   }
   fk::cp_wait<0>();  // a tile wholly above the diagonal ran no loop
-  flush<DC>(dkb, wkey0, Skv, D, dka, scale, flushed);
-  flush<DC>(dvb, wkey0, Skv, D, dva, 1.f, flushed);
+  flush<NC>(dkb, wkey0, 8 * cc0, Skv, D, dka, scale, flushed);
+  flush<NC>(dvb, wkey0, 8 * cc0, Skv, D, dva, 1.f, flushed);
 }
 
 template <int DC>
@@ -313,20 +352,23 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dq_f32_kernel(
     float* __restrict__ dq, int Sq, int Skv, int D, int causal, float c,
     float scale) {
   using P = Plan<DC>;
-  constexpr int S = P::S, T = P::T;
+  constexpr int S = P::S, T = P::T, NC = P::NC;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Os = Qs + FB_ROWS * S;  // dout
-  float* Ks = Os + FB_ROWS * S;  // two stages
+  float* Os = Qs + P::ROWS * S;  // dout
+  float* Ks = Os + P::ROWS * S;  // two stages
   float* Vs = Ks + 2 * T * S;    // two stages
 
   const long long bh = blockIdx.y;
-  const int n_qb = (Sq + FB_ROWS - 1) / FB_ROWS;
-  const int q0 = (n_qb - 1 - (int)blockIdx.x) * FB_ROWS;  // heaviest first
+  const int n_qb = (Sq + P::ROWS - 1) / P::ROWS;
+  const int q0 = (n_qb - 1 - (int)blockIdx.x) * P::ROWS;  // heaviest first
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, t = tid & 3;
-  const int qw0 = q0 + 16 * warp;  // this warp's rows; a thread's: +g, +g+8
-  const int last = min(q0 + FB_ROWS, Sq) - 1;  // the block's last row
+  // the warp's 16 rows, and its first output chunk
+  const int rw = P::CS == 1 ? warp : warp % (P::ROWS / 16);
+  const int cc0 = P::CS == 1 ? 0 : warp / (P::ROWS / 16) * NC;
+  const int qw0 = q0 + 16 * rw;  // this warp's rows; a thread's: +g, +g+8
+  const int last = min(q0 + P::ROWS, Sq) - 1;  // the block's last row
   int n_kt = (Skv + T - 1) / T;
   if (causal) n_kt = min(n_kt, last / T + 1);
   const float* kb = k + bh * Skv * D;
@@ -344,16 +386,16 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dq_f32_kernel(
     zero_smem(smem, P::SMEM);
     __syncthreads();
   }
-  load_rows<FB_ROWS, DC>(Qs, q + bh * Sq * D, q0, Sq, D);
-  load_rows<FB_ROWS, DC>(Os, dout + bh * Sq * D, q0, Sq, D);
+  load_rows<P::ROWS, DC>(Qs, q + bh * Sq * D, q0, Sq, D);
+  load_rows<P::ROWS, DC>(Os, dout + bh * Sq * D, q0, Sq, D);
   auto load_kv = [&](int st, int key0) {
     load_rows<T, DC>(Ks + st * T * S, kb, key0, Skv, D);
     load_rows<T, DC>(Vs + st * T * S, vb, key0, Skv, D);
   };
 
-  float dqa[DC][4];
+  float dqa[NC][4];
 #pragma unroll
-  for (int j = 0; j < DC; ++j)
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
   float* dqb = dq + bh * Sq * D;
@@ -379,13 +421,13 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dq_f32_kernel(
 #pragma unroll
       for (int ks = 0; ks < DC; ++ks) {
         uint32_t qh[4], ql[4], oh[4], ol[4];
-        a_frag<S>(Qs, 16 * warp, ks, qh, ql);
-        a_frag<S>(Os, 16 * warp, ks, oh, ol);
+        a_frag<P>(Qs, 16 * rw, ks, qh, ql);
+        a_frag<P>(Os, 16 * rw, ks, oh, ol);
 #pragma unroll
         for (int j = 0; j < T / 8; ++j) {
-          const int off = (8 * j + g) * S + 8 * ks + t;
-          fk::mma_3xtf32(s[j], qh, ql, Kt[off], Kt[off + 4]);
-          fk::mma_3xtf32(dp[j], oh, ol, Vt[off], Vt[off + 4]);
+          const int off = P::at(8 * j + g, 8 * ks + t), c4 = P::plus4(g);
+          fk::mma_3xtf32(s[j], qh, ql, Kt[off], Kt[off + c4]);
+          fk::mma_3xtf32(dp[j], oh, ol, Vt[off], Vt[off + c4]);
         }
       }
       // element e of chunk j is row qw0 + g + 8(e / 2), key key0 + 8j +
@@ -409,20 +451,20 @@ __global__ void __launch_bounds__(FB_THREADS, 1) flash_bwd_dq_f32_kernel(
       for (int j = 0; j < T / 8; ++j) {
         uint32_t dh[4], dl[4];
         c_as_a(dp[j], dh, dl);
-        const int off = (8 * j + 2 * t) * S + g;
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc)
-          fk::mma_3xtf32(dqa[cc], dh, dl, Kt[off + 8 * cc],
-                         Kt[off + S + 8 * cc]);
+        for (int cc = 0; cc < NC; ++cc)
+          P::pair(Kt, 8 * j + 2 * t, g, cc0 + cc, [&](float b0, float b1) {
+            fk::mma_3xtf32(dqa[cc], dh, dl, b0, b1);
+          });
       }
     }
     if (n % (FLUSH_ROWS / T) == FLUSH_ROWS / T - 1 && n + 1 < n_kt) {
-      flush<DC>(dqb, qw0, Sq, D, dqa, scale, flushed);
+      flush<NC>(dqb, qw0, 8 * cc0, Sq, D, dqa, scale, flushed);
       flushed = true;
     }
     __syncthreads();
   }
-  flush<DC>(dqb, qw0, Sq, D, dqa, scale, flushed);
+  flush<NC>(dqb, qw0, 8 * cc0, Sq, D, dqa, scale, flushed);
 }
 
 template <int DC>
@@ -442,13 +484,14 @@ int launch_plan(const float* q, const float* k, const float* v,
   // scores are taken raw: P = exp2(z·scale·log2(e) - lse·log2(e))
   const float c = (float)(1.4426950408889634 / sqrt((double)D));
   const float scale = (float)(1.0 / sqrt((double)D));
+  constexpr int rows = Plan<DC>::ROWS;
   flash_bwd_dkdv_f32_kernel<DC>
-      <<<dim3((Skv + FB_ROWS - 1) / FB_ROWS, BH), FB_THREADS, smem, stream>>>(
+      <<<dim3((Skv + rows - 1) / rows, BH), FB_THREADS, smem, stream>>>(
           q, k, v, dout, lse, di, dk, dv, Sq, Skv, D, causal, c, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_f32_kernel<DC>
-      <<<dim3((Sq + FB_ROWS - 1) / FB_ROWS, BH), FB_THREADS, smem, stream>>>(
+      <<<dim3((Sq + rows - 1) / rows, BH), FB_THREADS, smem, stream>>>(
           q, k, v, dout, lse, di, dq, Sq, Skv, D, causal, c, scale);
   return (int)cudaGetLastError();
 }
@@ -462,7 +505,7 @@ extern "C" int flash_attention_bwd_f32_launch(
     const void* dout, const void* lse, void* di, void* dq, void* dk,
     void* dv, int BH, int Sq, int Skv, int D, int causal, void* stream) {
   if (BH == 0) return 0;
-  if (D < 4 || D > 128 || D % 4 != 0 || Sq < 1 || Skv < 1 || BH > 65535)
+  if (D < 4 || D > 224 || D % 4 != 0 || Sq < 1 || Skv < 1 || BH > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long rows = (long long)BH * Sq;
@@ -478,5 +521,7 @@ extern "C" int flash_attention_bwd_f32_launch(
                   (float*)dq, (float*)dk, (float*)dv, BH, Sq, Skv, D, causal,
                   s);
   };
-  return D <= 64 ? args(launch_plan<8>) : args(launch_plan<16>);
+  return D <= 64    ? args(launch_plan<8>)
+         : D <= 128 ? args(launch_plan<16>)
+                    : args(launch_plan<28>);
 }

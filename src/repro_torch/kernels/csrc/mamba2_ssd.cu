@@ -5,7 +5,8 @@
 // (repro/kernels/mamba2_ssd.py). Plain version: `ref.mamba2_ssd` in
 // repro_torch/kernels/ref.py; wrapper: repro_torch/kernels/mamba2_ssd.py.
 //
-// x [B, S, H, P], dt [B, S, H], A [H], B/C [B, S, N], all float32 ->
+// x [B, S, H, P], dt [B, S, H], A [H], B/C [B, S, G, N] (G groups of H/G
+// consecutive heads; G = 1 is one B and C for every head), all float32 ->
 // y [B, S, H, P] and, where asked for, the final state h_{nc-1}
 // [B, H, P, N] (what a Mamba layer's prefill hands to its decode). Per (batch, chunk c of L tokens, head), with cum the
 // within-chunk cumulative sum of dt * A[h], total = cum[L-1], dtx = dt * x:
@@ -18,8 +19,8 @@
 // widths against 0.44 GB moved). The plain version's decomposition, on the
 // H100's tensor cores:
 //
-// * Chunks in parallel. A block owns one (batch, chunk) and a group of
-//   `hpb` heads; B and C are shared by the heads (one group), so C.B^T -
+// * Chunks in parallel. A block owns one (batch, chunk) and `hpb` heads
+//   of one B/C group; B and C are shared by the group's heads, so C.B^T -
 //   the largest product - is computed once a block, on its lower
 //   triangle (warp w: rows 16w..16w+15, columns below 16(w+1)), and kept
 //   in shared memory in fragment order. Then, head by head: the chunk's
@@ -87,7 +88,7 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, float* __restrict__ y,
     float* __restrict__ hfin, float* ring, int* flags, int Bsz, int S, int H,
-    int P, int N, int L, int hpb) {
+    int G, int P, int N, int L, int hpb) {
   extern __shared__ __align__(16) float smem[];
   float* Cs = smem;                 // [L][CST]
   float* Bs = Cs + SSD_MAXL * CST;  // [L][BST]
@@ -101,7 +102,9 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int nc = S / L, ngrp = (H + hpb - 1) / hpb;
+  // a block's heads lie in one B/C group: `gblk` blocks a group
+  const int Hg = H / G, gblk = (Hg + hpb - 1) / hpb;
+  const int nc = S / L, ngrp = G * gblk;
   if (tid == 0) s_ticket = atomicAdd(flags, 1);
   for (int i = tid * 4; i < SSD_SMEM_FLOATS + SSD_MAXL * hpb;
        i += SSD_THREADS * 4)
@@ -111,16 +114,19 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
   const int ticket = s_ticket;
   const int c = ticket / (Bsz * ngrp);
   const int b = (ticket - c * Bsz * ngrp) / ngrp;
-  const int h0 = (ticket - c * Bsz * ngrp - b * ngrp) * hpb;
-  const int hn = min(hpb, H - h0);
+  const int blk = ticket - c * Bsz * ngrp - b * ngrp;
+  const int grp = blk / gblk, hg0 = (blk - grp * gblk) * hpb;
+  const int h0 = grp * Hg + hg0;
+  const int hn = min(hpb, Hg - hg0);
   const long long row0 = (long long)b * S + (long long)c * L;  // token
   const int n4 = N / 4, p4 = P / 4;
   const int LK = (L + 7) / 8;  // k steps over L
 
   for (int i = tid; i < L * n4; i += SSD_THREADS) {
     const int l = i / n4, cc = (i - l * n4) * 4;
-    fk::cp_async16(Cs + l * CST + cc, Cm + (row0 + l) * N + cc);
-    fk::cp_async16(Bs + l * BST + cc, Bm + (row0 + l) * N + cc);
+    const long long src = ((row0 + l) * G + grp) * N + cc;
+    fk::cp_async16(Cs + l * CST + cc, Cm + src);
+    fk::cp_async16(Bs + l * BST + cc, Bm + src);
   }
   fk::cp_commit();
   for (int i = tid; i < L * hn; i += SSD_THREADS) {
@@ -376,15 +382,16 @@ __global__ void __launch_bounds__(SSD_THREADS, 1) mamba2_ssd_kernel(
 // hfin: the final state [B, H, P, N] float32, or null (not written);
 // ring: [B, H, 2, P, N] float32 scratch; flags: 1 + B*H int32, zeroed by
 // the caller before each launch (the ticket counter, then one flag a
-// (batch, head)); hpb: heads a block.
+// (batch, head)); G: B/C groups, dividing H; hpb: heads a block.
 extern "C" int mamba2_ssd_f32_launch(const void* x, const void* dt,
                                      const void* A, const void* Bm,
                                      const void* Cm, void* y, void* hfin,
                                      void* ring, void* flags, int Bsz, int S,
-                                     int H, int P, int N, int L, int hpb,
-                                     void* stream) {
+                                     int H, int G, int P, int N, int L,
+                                     int hpb, void* stream) {
   if (Bsz == 0 || H == 0 || S == 0) return 0;
-  if (L <= 0 || S % L != 0 || L > SSD_MAXL || P > SSD_MAXP ||
+  if (G < 1 || H % G != 0 || L <= 0 || S % L != 0 || L > SSD_MAXL ||
+      P > SSD_MAXP ||
       N > SSD_MAXN || P % 4 != 0 || N % 4 != 0 || hpb < 1 ||
       hpb > SSD_MAX_HPB)
     return (int)cudaErrorInvalidValue;
@@ -392,10 +399,10 @@ extern "C" int mamba2_ssd_f32_launch(const void* x, const void* dt,
   cudaError_t err = cudaFuncSetAttribute(
       mamba2_ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = Bsz * (S / L) * ((H + hpb - 1) / hpb);
+  const int blocks = Bsz * (S / L) * G * ((H / G + hpb - 1) / hpb);
   mamba2_ssd_kernel<<<blocks, SSD_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (float*)y, (float*)hfin, (float*)ring, (int*)flags,
-      Bsz, S, H, P, N, L, hpb);
+      Bsz, S, H, G, P, N, L, hpb);
   return (int)cudaGetLastError();
 }

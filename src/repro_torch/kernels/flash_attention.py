@@ -70,12 +70,16 @@ LAUNCHES = 0
 #: number of backward calls that launched the backward kernels
 BWD_LAUNCHES = 0
 
-#: the widest head the kernel takes, and the TPU kernel's block length
+#: the widest head the bf16 kernel takes, and the TPU kernel's block length
 MAX_D, BLOCK = 128, 128
-#: keys a kv tile of E's f32 kernel (its online log-sum-exp walks these)
-F_KT = 64
-#: keys of a dk/dv block and query rows of a dq block of the backward
-BWD_ROWS = 128
+#: the widest head the f32 kernel and the backward kernels take
+MAX_D_F32 = 224
+#: keys a kv tile of E's f32 kernel (its online log-sum-exp walks these),
+#: at D <= MAX_D and past it
+F_KT, F_KT_WIDE = 64, 32
+#: keys of a dk/dv block and query rows of a dq block of the backward, at
+#: D <= MAX_D and past it
+BWD_ROWS, BWD_ROWS_WIDE = 128, 64
 
 flash_attention_torch = ref.flash_attention
 
@@ -122,7 +126,8 @@ def backward_operations(bh: int, sq: int, skv: int, d: int,
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: [BH, Sq, D]; k, v: [BH, Skv, D]; one dtype (float32 or
     bfloat16), contiguous, on one device. Returns [BH, Sq, D] of q's
-    dtype. On the card D is at most `MAX_D` and a multiple of 4."""
+    dtype. On the card D is a multiple of 4, at most `MAX_D` in bfloat16
+    and `MAX_D_F32` in float32."""
     return _forward("flash_attention", q, k, v, causal, False, False)[0]
 
 
@@ -199,21 +204,23 @@ def _forward(fn, q, k, v, causal, ragged, with_lse):
 def flash_attention_lse_torch(q, k, *, causal: bool = True):
     """Each query row's log-sum-exp of its scaled scores, [BH, Sq], as
     E's f32 kernel takes it: a running max m and sum l over key tiles of
-    `F_KT`, then m + log(l). Computed in float32, or in float64 for
-    float64 inputs (the plain versions' checks)."""
+    `F_KT` (`F_KT_WIDE` past `MAX_D`), then m + log(l). Computed in
+    float32, or in float64 for float64 inputs (the plain versions'
+    checks)."""
     bh, sq, d = q.shape
     skv = k.shape[1]
+    kt = F_KT if d <= MAX_D else F_KT_WIDE
     wt = torch.promote_types(q.dtype, torch.float32)
     qw, kw = q.to(wt), k.to(wt)
     i64 = dict(dtype=torch.int64, device=q.device)
     qpos = torch.arange(sq, **i64)
     m = torch.full((bh, sq), -math.inf, dtype=wt, device=q.device)
     l = torch.zeros((bh, sq), dtype=wt, device=q.device)
-    for k0 in range(0, skv, F_KT):
+    for k0 in range(0, skv, kt):
         z = torch.einsum("bqd,bkd->bqk", qw,
-                         kw[:, k0:k0 + F_KT]) / math.sqrt(d)
+                         kw[:, k0:k0 + kt]) / math.sqrt(d)
         if causal:
-            kpos = torch.arange(k0, min(k0 + F_KT, skv), **i64)
+            kpos = torch.arange(k0, min(k0 + kt, skv), **i64)
             z = torch.where(qpos[:, None] >= kpos[None, :], z, -math.inf)
         m_new = torch.maximum(m, z.amax(-1))
         safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -229,8 +236,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, *,
     forward's `out` and `lse` (`flash_attention_with_lse`). q, out, dout
     [BH, Sq, D]; k, v [BH, Skv, D]; lse [BH, Sq]; contiguous, on one
     device. CUDA tensors launch the backward kernels (float32, D at most
-    `MAX_D` and a multiple of 4) or raise; CPU tensors (and `meta`) run
-    `flash_attention_backward_torch`."""
+    `MAX_D_F32` and a multiple of 4) or raise; CPU tensors (and `meta`)
+    run `flash_attention_backward_torch`."""
     global BWD_LAUNCHES
     from repro_torch.kernels import _build
     fn = "flash_attention_backward"
@@ -259,9 +266,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, *,
     if q.dtype != torch.float32 or lse.dtype != torch.float32:
         raise TypeError(f"{fn}: the kernels take float32; got {q.dtype}, "
                         f"lse {lse.dtype}")
-    if d > MAX_D or d % 4:
-        raise ValueError(f"{fn}: the kernels take D <= {MAX_D}, a multiple "
-                         f"of 4; got D={d}")
+    if d > MAX_D_F32 or d % 4:
+        raise ValueError(f"{fn}: the kernels take D <= {MAX_D_F32}, a "
+                         f"multiple of 4; got D={d}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if bh == 0:
         return dq, dk, dv
@@ -281,8 +288,9 @@ def flash_attention_backward_torch(q, k, v, out, lse, dout, *,
                                    causal: bool = True):
     """The plain version of `flash_attention_backward`, walking the
     kernels' tiles: Di = rowsum(dout ∘ out); for each block of `BWD_ROWS`
-    keys, the query tiles of t rows from the diagonal on (t = 64 where
-    the kernels pad D to 64 columns, 32 where they pad it to 128),
+    keys (`BWD_ROWS_WIDE` past `MAX_D`), the query tiles of t rows from
+    the diagonal on (t = 64 where the kernels pad D to 64 columns, 32
+    where they pad it to 128 or take it wider),
     P = exp(q·kᵀ·scale - lse) masked, dP = dout·vᵀ, dS = P ∘ (dP - Di),
     dv += Pᵀ·dout, dk += dSᵀ·q; for each block of `BWD_ROWS` query rows,
     the key tiles up to the diagonal, dq += dS·k; dk and dq times scale
@@ -296,7 +304,8 @@ def flash_attention_backward_torch(q, k, v, out, lse, dout, *,
     scale = 1.0 / math.sqrt(d)
     i64 = dict(dtype=torch.int64, device=q.device)
     di = (gw * ow).sum(-1)
-    rows, t = BWD_ROWS, 64 if d <= 64 else 32
+    rows = BWD_ROWS if d <= MAX_D else BWD_ROWS_WIDE
+    t = 64 if d <= 64 else 32
 
     def tile(q0, q1, k0, k1):
         """P and dS of query rows [q0, q1) against keys [k0, k1)."""
@@ -349,9 +358,10 @@ def _launch(fn, q, k, v, causal, q_blk, kv_blk, lse=None):
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     bh, sq, d = q.shape
-    if d > MAX_D or d % 4:
-        raise ValueError(f"{fn}: the kernel takes D <= {MAX_D}, a multiple "
-                         f"of 4; got D={d}")
+    dmax = MAX_D_F32 if q.dtype == torch.float32 else MAX_D
+    if d > dmax or d % 4:
+        raise ValueError(f"{fn}: the {_DTYPES[q.dtype]} kernel takes D <= "
+                         f"{dmax}, a multiple of 4; got D={d}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

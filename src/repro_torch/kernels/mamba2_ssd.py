@@ -10,8 +10,9 @@ to the next,
     h  <- h·exp(total) + Σ_l exp(total − cum_l) · (dt·x)_l ⊗ B_l
 
 with `cum` the within-chunk cumulative sum of `dt·A[head]` and `total`
-its last value; B and C are shared by the heads (one group). No D
-residual, no gating.
+its last value; B and C are [B,S,N], shared by every head, or [B,S,G,N]:
+G groups, each shared by H/G consecutive heads. No D residual, no
+gating.
 
 Beside the kernel, as beside every kernel of this package:
 
@@ -34,8 +35,9 @@ What bounds it on an H100: operations. At mamba2-130m widths (L=128,
 P=64, N=128, 24 heads, batch 8 x 4096 tokens) the call needs ~33 GFLOP
 (`operations`) against 0.44 GB of x, y, B, C and dt moved. The kernel
 follows the plain version's decomposition: blocks own a (batch, chunk)
-and a group of `HEADS_PER_BLOCK` heads and run in parallel; C·Bᵀ is
-computed once a block (B and C are shared by the heads), every product
+and up to `HEADS_PER_BLOCK` heads of one group and run in parallel;
+C·Bᵀ is computed once a block (B and C are shared by the group's heads),
+every product
 runs as 3xTF32 on the tensor cores, and only the [P, N] state crosses
 chunks, carried by a decoupled look-back: the block of chunk c waits for
 the state after chunk c − 1, publishes its own, then finishes its
@@ -53,6 +55,9 @@ from repro_torch.kernels import ref
 
 #: number of kernel launches made by `mamba2_ssd`
 LAUNCHES = 0
+#: number of backward calls of the trainable route
+#: (`ops.mamba2_ssd_with_state_trainable`), counted by its backward
+BWD_CALLS = 0
 
 #: the largest chunk, head width and state width the kernel takes
 MAX_L, MAX_P, MAX_N = 128, 64, 128
@@ -65,20 +70,23 @@ mamba2_ssd_torch = ref.mamba2_ssd
 mamba2_ssd_with_state_torch = ref.mamba2_ssd_with_state
 
 
-def operations(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+def operations(b: int, s: int, h: int, p: int, n: int, chunk: int,
+               groups: int = 1) -> int:
     """Floating-point operations the function needs (2 a multiply-add):
-    per (batch, chunk), C·Bᵀ over the L(L+1)/2 pairs j ≤ i once - B and
-    C are shared by the heads - then per head the weighted dt·x over the
-    same pairs, C·hᵀ and the chunk's state, L·P·N each (the kernel's
-    tiles also compute some j > i and discard them)."""
+    per (batch, chunk, group), C·Bᵀ over the L(L+1)/2 pairs j ≤ i once -
+    B and C are shared by the group's heads - then per head the weighted
+    dt·x over the same pairs, C·hᵀ and the chunk's state, L·P·N each (the
+    kernel's tiles also compute some j > i and discard them)."""
     l = min(chunk, s)
     pairs = l * (l + 1) // 2
-    return 2 * b * (s // l) * (pairs * n + h * (pairs * p + 2 * l * p * n))
+    return 2 * b * (s // l) * (groups * pairs * n
+                               + h * (pairs * p + 2 * l * p * n))
 
 
 def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int = 128):
     """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); A: [H] (<0);
-    B_in/C_in: [B,S,N]; all float32, contiguous, on one device. Returns
+    B_in/C_in: [B,S,N], or [B,S,G,N] with G dividing H (head h reads
+    group h // (H/G)); all float32, contiguous, on one device. Returns
     y [B,S,H,P]. `min(chunk, S)` must divide S; on the card it is at
     most `MAX_L`, with P <= `MAX_P` and N <= `MAX_N`, both multiples of
     4."""
@@ -99,15 +107,18 @@ def _run(fn, x, dt, A, B_in, C_in, chunk, with_state):
     from repro_torch.kernels import _build
     f32 = (torch.float32,)
     _build.check_tensor(fn, "x", x, dtypes=f32, ndim=4)
-    for name, t, nd in (("dt", dt, 3), ("A", A, 1), ("B_in", B_in, 3),
-                        ("C_in", C_in, 3)):
+    bc_nd = 4 if getattr(B_in, "ndim", 3) == 4 else 3
+    for name, t, nd in (("dt", dt, 3), ("A", A, 1), ("B_in", B_in, bc_nd),
+                        ("C_in", C_in, bc_nd)):
         _build.check_tensor(fn, name, t, dtypes=f32, ndim=nd,
                             device=x.device)
     b, s, h, p = x.shape
     n = B_in.shape[-1]
+    g = B_in.shape[2] if bc_nd == 4 else 1
+    bc = (b, s, g, n) if bc_nd == 4 else (b, s, n)
     if (tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,)
-            or tuple(B_in.shape) != (b, s, n)
-            or tuple(C_in.shape) != (b, s, n)):
+            or tuple(B_in.shape) != bc or tuple(C_in.shape) != bc
+            or h % g):
         raise ValueError(f"{fn}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B_in.shape)}, C {tuple(C_in.shape)} do "
@@ -137,8 +148,8 @@ def _run(fn, x, dt, A, B_in, C_in, chunk, with_state):
         _build.launch("mamba2_ssd_f32_launch", x.data_ptr(), dt.data_ptr(),
                       A.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
                       y.data_ptr(), state.data_ptr() if with_state else 0,
-                      ring.data_ptr(), flags.data_ptr(), b, s, h, p, n, l,
-                      min(HEADS_PER_BLOCK, h),
+                      ring.data_ptr(), flags.data_ptr(), b, s, h, g, p, n, l,
+                      min(HEADS_PER_BLOCK, h // g),
                       torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return (y, state) if with_state else y

@@ -100,9 +100,11 @@ def flash_attention_ragged_trainable(q, k, v, causal=True):
 class _SsdTrainable(torch.autograd.Function):
     """Kernel F forward with its final state (`mamba2_ssd_with_state`),
     the plain version's gradient backward: autograd of
-    `ref.mamba2_ssd_with_state` (the chunked SSD with a zero residual)
-    recomputed from the saved inputs. A final state that nothing reads
-    comes back with no gradient."""
+    `ref.mamba2_ssd_with_state` (the chunked SSD with a zero residual,
+    B and C in one group or in G) recomputed from the saved inputs. A
+    final state that nothing reads comes back with no gradient. Every
+    backward runs inside the span `ssd.backward` (CUDA events on the
+    card) and counts one `mamba2_ssd.BWD_CALLS`."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_in, C_in, chunk):
@@ -113,8 +115,10 @@ class _SsdTrainable(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
+        _ssd.BWD_CALLS += 1
         ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        dev = ins[0].device
+        with trace.span("ssd.backward", dev), torch.enable_grad():
             outs = R.mamba2_ssd_with_state(*ins, chunk=ctx.chunk)
             pairs = [(o, g) for o, g in zip(outs, (gy, gstate))
                      if g is not None]

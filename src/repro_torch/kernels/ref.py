@@ -64,7 +64,8 @@ def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale,
 
 def mamba2_ssd(x, dt, A, B_in, C_in, *, chunk: int):
     """SSD chunked scan oracle. x: [B,S,H,P]; dt: [B,S,H] (>0, post-softplus);
-    A: [H] (<0); B_in/C_in: [B,S,N]. Returns y [B,S,H,P] (no D residual)."""
+    A: [H] (<0); B_in/C_in: [B,S,N] or [B,S,G,N] (G groups of H/G heads).
+    Returns y [B,S,H,P] (no D residual)."""
     return mamba2_ssd_with_state(x, dt, A, B_in, C_in, chunk=chunk)[0]
 
 

@@ -490,3 +490,62 @@ def apply_mamba_decode(p: dict, h: torch.Tensor, dims: Dims, state: dict):
     out = torch.einsum("bse,ed->bsd", y, p["wo"].to(y.dtype))
     return h + out, {"ssd": ssd, "conv_x": conv_x, "conv_B": conv_B,
                      "conv_C": conv_C}
+
+
+# ========================================================= mamba2, grouped
+# The Mamba2 mixer as Zamba2 publishes it (`configs/zamba2_7b_instruct`):
+# one input projection to (z, x, B, C, dt), one depthwise conv with a bias
+# over (x, B, C), B and C in `ssm.n_groups` groups, dt clamped below, and
+# the gated norm taken per group.
+
+def init_mamba_grouped(gen: torch.Generator, dims: Dims, device,
+                       out_scale: float) -> dict:
+    """One layer's params: ``in_proj`` [D, 2·di + 2·G·N + H] (z, x, B, C,
+    dt), ``conv_w`` [di + 2·G·N, W] and ``conv_b``, and per head
+    ``dt_bias`` (dt log-uniform in [1e-3, 0.1]), ``A_log`` (A uniform in
+    [1, 16]) and ``Dres``."""
+    cfg = dims.cfg
+    s = cfg.ssm
+    d, w, di, nh = cfg.d_model, s.d_conv, dims.d_inner, dims.ssm_heads
+    conv = di + 2 * s.n_groups * s.d_state
+    pdt = dims.param_dtype
+    dt = torch.exp(_uniform(gen, (nh,), math.log(1e-3), math.log(0.1),
+                            device))
+    return {
+        "ln": torch.ones((d,), dtype=pdt, device=device),
+        "in_proj": _norm(gen, (d, di + conv + nh), pdt, device),
+        "conv_w": _norm(gen, (conv, w), pdt, device, 0.5),
+        "conv_b": torch.zeros((conv,), dtype=pdt, device=device),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "A_log": torch.log(_uniform(gen, (nh,), 1.0, 16.0, device)),
+        "Dres": torch.ones((nh,), dtype=torch.float32, device=device),
+        "norm_w": torch.ones((di,), dtype=pdt, device=device),
+        "wo": _norm(gen, (di, d), pdt, device, out_scale),
+    }
+
+
+def apply_mamba_grouped(p: dict, x: torch.Tensor, dims: Dims):
+    """The mixer's output for x [B,S,D] (the caller adds the residual):
+    RMSNorm, the input projection, conv + silu over (x, B, C), the
+    chunked SSD (kernel F on the card) with B/C [B,S,G,N], the per-group
+    gated norm and the output projection."""
+    cfg = dims.cfg
+    s = cfg.ssm
+    di, gn, nh = dims.d_inner, s.n_groups * s.d_state, dims.ssm_heads
+    xn = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    z, xbc, dt = torch.split(L.eins("bsd,de->bse", xn, p["in_proj"]),
+                             [di, di + 2 * gn, nh], dim=-1)
+    xbc = L.causal_depthwise_conv(xbc, p["conv_w"]) + p["conv_b"].to(xbc.dtype)
+    xin, b_in, c_in = torch.split(_silu_as(xbc), [di, gn, gn], dim=-1)
+    bsz, seq = x.shape[:2]
+    grouped = (bsz, seq, s.n_groups, s.d_state)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    if s.dt_min:
+        dt = torch.clamp_min(dt, s.dt_min)
+    y, _ = L.ssd_chunked(xin.reshape(bsz, seq, nh, s.head_dim), dt,
+                         -torch.exp(p["A_log"]), b_in.reshape(grouped),
+                         c_in.reshape(grouped), p["Dres"], s.chunk)
+    y = L.gated_rmsnorm(y.reshape(bsz, seq, di), z, p["norm_w"],
+                        cfg.norm_eps, groups=s.n_groups)
+    return L.eins("bse,ed->bsd", y, p["wo"])
+

@@ -458,7 +458,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD (state-space duality), chunked.
 
     x: [B,S,H,P]; dt: [B,S,H] (post-softplus, >0); A: [H] (negative);
-    B_in/C_in: [B,S,N] (single group); D_res: [H].
+    B_in/C_in: [B,S,N] (one group) or [B,S,G,N] (G groups, each read by
+    H/G consecutive heads); D_res: [H].
     Returns y [B,S,H,P] and final state [B,H,P,N].
 
     On CUDA tensors: kernel F (`_ssd_on_card`), which raises where it
@@ -466,6 +467,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     reference's chunked form, `ssd_chunked_plain`.
     """
     if is_dtensor(x):
+        if B_in.ndim == 4:
+            raise ValueError("ssd_chunked: B/C groups are not supported on "
+                             "a mesh")
         return _ssd_on_mesh(x, dt, A, B_in, C_in, D_res, chunk, init_state)
     if x.device.type == "cuda":
         return _ssd_on_card(x, dt, A, B_in, C_in, D_res, chunk, init_state)
@@ -519,7 +523,34 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       D_res: torch.Tensor, chunk: int,
                       init_state: Optional[torch.Tensor] = None):
     """`ssd_chunked` as the reference computes it, on any device: the
-    plain version kernel F is held to (`kernels.ref.mamba2_ssd`)."""
+    plain version kernel F is held to (`kernels.ref.mamba2_ssd`).
+
+    B_in/C_in [B,S,G,N] give G groups: head h reads group h // (H/G),
+    and each group's heads are scanned by the one-group form below on
+    their slices (G = 1 is that form on the whole tensors).
+
+    One departure from the reference: the decay's exponent cum_i - cum_j
+    is set to -inf above the diagonal before the exp. The reference takes
+    the exp first and masks after; above the diagonal the exponent is
+    positive and overflows once |dt·A| summed over a chunk passes ~88,
+    and the masked product's gradient is then 0·inf = NaN. The values
+    are the same either way; the gradients here stay finite."""
+    if B_in.ndim == 4:
+        g = B_in.shape[2]
+        hg = x.shape[2] // g
+        if g * hg != x.shape[2]:
+            raise ValueError(f"ssd_chunked: {g} groups do not divide "
+                             f"{x.shape[2]} heads")
+        outs = [ssd_chunked_plain(
+            x[:, :, i * hg:(i + 1) * hg], dt[:, :, i * hg:(i + 1) * hg],
+            A[i * hg:(i + 1) * hg], B_in[:, :, i], C_in[:, :, i],
+            D_res[i * hg:(i + 1) * hg], chunk,
+            None if init_state is None
+            else init_state[:, i * hg:(i + 1) * hg]) for i in range(g)]
+        if g == 1:
+            return outs[0]
+        return (torch.cat([o[0] for o in outs], 2),
+                torch.cat([o[1] for o in outs], 1))
     b, s, h, p = x.shape
     n = B_in.shape[-1]
     l = min(chunk, s)
@@ -536,8 +567,10 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # ---- intra-chunk (quadratic within chunk, causal-masked decay)
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                 # [B,nc,L,L]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(
+        mask[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf))
     w_ij = torch.where(mask[None, None, :, :, None], cb[..., None] * decay,
                        0.0)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_ij, dtx)
@@ -577,9 +610,16 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                  eps: float, n: Optional[int] = None) -> torch.Tensor:
-    """Mamba2 output norm: RMSNorm(y * silu(z))."""
+                  eps: float, n: Optional[int] = None,
+                  groups: int = 1) -> torch.Tensor:
+    """Mamba2 output norm: RMSNorm(y * silu(z)); with `groups`, taken over
+    each of that many equal slices of the channels apart."""
     yf = y.float() * F.silu(z.float())
+    if groups > 1:
+        yg = yf.reshape(*yf.shape[:-1], groups, -1)
+        var = torch.mean(yg * yg, dim=-1, keepdim=True)
+        yg = yg * torch.rsqrt(var + eps)
+        return (yg.reshape(yf.shape) * w.float()).to(y.dtype)
     denom = n if n is not None else yf.shape[-1]
     var = torch.sum(yf * yf, dim=-1, keepdim=True) / denom
     if is_dtensor(var):                   # a sum over sharded channels

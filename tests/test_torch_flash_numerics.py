@@ -104,8 +104,10 @@ def emulate_bf16(q, k, v, causal):
 
 
 def emulate_f32(q, k, v, causal, mm=mm_3xtf32):
-    """Kernel E's f32 arithmetic (3xTF32 by default) on float32 tensors."""
-    return _online(mm(q, k.transpose(1, 2)), v, causal, F32_KT, mm)
+    """Kernel E's f32 arithmetic (3xTF32 by default) on float32 tensors,
+    over its kv tiles (32 keys for heads wider than 128)."""
+    kt = F32_KT if q.shape[-1] <= 128 else F32_KT // 2
+    return _online(mm(q, k.transpose(1, 2)), v, causal, kt, mm)
 
 
 def _held(got, want, dtype, what):
@@ -118,7 +120,7 @@ def _held(got, want, dtype, what):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("case", cs.FLASH_CASES)
+@pytest.mark.parametrize("case", [c for c in cs.FLASH_CASES if c[3] <= 128])
 def test_bf16_split_p_meets_the_card_bar(case, causal):
     q, k, v = _inputs(*case)
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))

@@ -172,10 +172,17 @@ def test_cuda_paged_attention_equals_plain_version(dtype, b, h, hkv, d, t,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("case", cs.FLASH_CASES)
 def test_cuda_flash_attention_equals_plain_version(dtype, causal, case):
+    """Held at `FLASH_TOL`; a head wider than the bf16 kernel takes is
+    refused in bf16, with no launch."""
     from repro_torch.kernels import flash_attention as fa
     g = _gpu_float_setup()
     q, k, v = (x.to(dtype) for x in cs.flash_inputs(torch, g, *case))
     before = fa.LAUNCHES
+    if dtype not in cs.flash_dtypes(torch, fa, case[3]):
+        with pytest.raises(ValueError):
+            cs.flash_entry(fa, case[1], case[2])(q, k, v, causal=causal)
+        assert fa.LAUNCHES == before
+        return
     got = cs.flash_entry(fa, case[1], case[2])(q, k, v, causal=causal)
     assert fa.LAUNCHES == before + 1
     cs.close(torch, got, fa.flash_attention_torch(q, k, v, causal=causal),
@@ -209,6 +216,22 @@ def test_cuda_mamba2_ssd_final_state_equals_plain_version(b, s, h, p, n,
     assert state.shape == (b, h, p, n) and state.dtype == torch.float32
     cs.close(torch, y, y_want, *cs.SSD_TOL, "mamba2 ssd y")
     cs.close(torch, state, state_want, *cs.SSD_TOL, "mamba2 ssd state")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk,groups", cs.SSD_GROUP_CASES)
+def test_cuda_mamba2_ssd_groups_equal_plain_version(b, s, h, p, n, chunk,
+                                                    groups):
+    """F with B and C in groups ([B,S,G,N], a block's heads in one group)
+    against its plain version, y and the final state, one launch."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    args = cs.ssd_inputs(torch, _gpu_float_setup(), b, s, h, p, n, groups)
+    before = ssd.LAUNCHES
+    y, state = ssd.mamba2_ssd_with_state(*args, chunk=chunk)
+    assert ssd.LAUNCHES == before + 1
+    y_want, state_want = ssd.mamba2_ssd_with_state_torch(*args, chunk=chunk)
+    cs.close(torch, y, y_want, *cs.SSD_TOL, "grouped ssd y")
+    cs.close(torch, state, state_want, *cs.SSD_TOL, "grouped ssd state")
 
 
 # ------------------------------------------------------------ serving path

@@ -270,13 +270,30 @@ def test_card_ssd_route_backward_is_the_plain_gradient(use_state):
         _hold(a, b_, GRAD_REL, f"d{name}")
 
 
+def _ssd_recurrence_f64(x, dt, A, Bi, Ci):
+    """The SSD as its token-by-token recurrence in float64: h <- h·exp(dt·A)
+    + dt·x ⊗ B, y = h·C (no chunks, no exp of a difference)."""
+    b, s, h, p = x.shape
+    st = torch.zeros((b, h, p, Bi.shape[-1]), dtype=torch.float64)
+    ys = []
+    for i in range(s):
+        st = (st * torch.exp(dt[:, i] * A)[:, :, None, None]
+              + (dt[:, i, :, None] * x[:, i])[..., None]
+              * Bi[:, i, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", st, Ci[:, i]))
+    return torch.stack(ys, 1)
+
+
 def test_ssd_gradient_is_nan_where_the_decay_overflows_as_in_reference():
-    """Parity kept on purpose: where |dt·A| summed within a chunk passes
-    ~88, the chunked SSD's decay exp(cum_i - cum_j) overflows above the
-    diagonal, and the masked product's gradient is 0·inf = NaN in dt, A,
-    B and C (not in x), in the reference's `ssd_chunked` and the port's
-    card route alike, at the same elements. mamba2-130m's init (A down
-    to -16, dt up to 0.1, chunk 128) reaches it (`ROADMAP.md` queue 3)."""
+    """Where |dt·A| summed within a chunk passes ~88, the reference's
+    chunked SSD takes exp(cum_i - cum_j) over the whole chunk before it
+    masks j > i: above the diagonal that overflows, and its gradient is
+    0·inf = NaN in dt, A, B and C (not in x). The port masks the exponent
+    before the exp (a departure, `ROADMAP.md`): its forward stays the
+    reference's, and its gradients through the card route are finite and
+    hold against the float64 recurrence everywhere, and against the
+    reference's where those are finite. mamba2-130m's init (A down to
+    -16, dt up to 0.1, chunk 128) reaches it."""
     rs = np.random.RandomState(0)
     b, s, h, p, n, chunk = 1, 256, 4, 8, 16, 128
     x = rs.randn(b, s, h, p).astype(np.float32)
@@ -289,14 +306,20 @@ def test_ssd_gradient_is_nan_where_the_decay_overflows_as_in_reference():
         return jnp.sum(JL.ssd_chunked(*a, jnp.asarray(D), chunk)[0])
     want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
         *map(jnp.asarray, (x, dt, A, Bi, Ci)))
+    jy = JL.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bi, Ci, D)), chunk)[0]
     ins = [torch.from_numpy(a.copy()).requires_grad_()
            for a in (x, dt, A, Bi, Ci)]
     y, _ = TL._ssd_on_card(*ins, torch.from_numpy(D), chunk, None)
+    _hold(y.detach(), np.asarray(jy), GRAD_REL, "y")
     got = torch.autograd.grad(y.sum(), ins)
-    for name, g, w in zip(("x", "dt", "A", "B", "C"), got, want):
+    ins64 = [torch.from_numpy(a.astype(np.float64)).requires_grad_()
+             for a in (x, dt, A, Bi, Ci)]
+    y64 = _ssd_recurrence_f64(*ins64) + ins64[0]    # D = 1
+    exact = torch.autograd.grad(y64.sum(), ins64)
+    for name, g, w, e in zip(("x", "dt", "A", "B", "C"), got, want, exact):
         w = np.asarray(w)
-        np.testing.assert_array_equal(np.isnan(g.numpy()), np.isnan(w))
         assert np.isnan(w).any() == (name != "x"), name
+        _hold(g, e.numpy(), GRAD_REL, f"d{name} against float64")
         fin = np.isfinite(w)
         _hold(g.numpy()[fin], w[fin], GRAD_REL, f"d{name} where finite")
 
